@@ -1,0 +1,42 @@
+"""BDDT-SCC in PyTorch: block-level dynamic dependence analysis + task runtime.
+
+The port of :mod:`repro.core` (the JAX package, the reference) module by
+module, with tiles as torch tensors on one device:
+
+* :mod:`api`        — the OmpSs front-end: @task footprints, futures, config
+* :mod:`blocks`     — the custom block allocator (BlockArray / Region / In-Out-InOut)
+* :mod:`deps`       — block-level dynamic dependence analysis (BDDT)
+* :mod:`graph`      — task descriptors, descriptor pool, ready/completion queues
+* :mod:`mpb`        — message-passing-buffer SPSC descriptor rings
+* :mod:`scheduler`  — the master's running/polling modes + lazy release
+* :mod:`executor`   — sequential (oracle) / staged (wavefront batching) execution
+* :mod:`wavekernel` — the registry of hand-written wave kernels
+* :mod:`placement`  — memory-controller striping (block homes)
+"""
+from .api import (DEP_MANAGERS, DEP_PUMPS, EXECUTORS, KERNEL_BACKENDS,
+                  PLACEMENTS, SCHEDULING_POLICIES, STATS_SCHEMA,
+                  DepManagerKind, DepPumpKind, ExecutorKind, KernelBackend,
+                  PlacementKind, RuntimeConfig, RuntimeStats,
+                  SchedulingPolicy, TaskFuture, current_runtime, task,
+                  wait_on)
+from .blocks import (AccessMode, BlockArray, In, InOut, Out, Region,
+                     coerce_mode)
+from .executor import Executor
+from .runtime import TaskRuntime
+from .wavekernel import register_wave_kernel
+
+__all__ = [
+    # entry points
+    "TaskRuntime", "task", "wait_on", "current_runtime",
+    # data + footprints
+    "BlockArray", "Region", "AccessMode", "In", "Out", "InOut",
+    "coerce_mode",
+    # configuration + results
+    "RuntimeConfig", "RuntimeStats", "STATS_SCHEMA", "TaskFuture",
+    # typed configuration choices (one source for every stringly field)
+    "ExecutorKind", "DepManagerKind", "DepPumpKind", "SchedulingPolicy",
+    "PlacementKind", "KernelBackend", "EXECUTORS", "DEP_MANAGERS",
+    "DEP_PUMPS", "SCHEDULING_POLICIES", "PLACEMENTS", "KERNEL_BACKENDS",
+    # extension surfaces
+    "Executor", "register_wave_kernel",
+]

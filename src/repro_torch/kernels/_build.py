@@ -1,0 +1,151 @@
+"""Build the hand-written CUDA kernels and load them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` has a plain C interface (pointers, sizes and the
+stream as ``void*``; each entry returns ``cudaGetLastError()``), so it
+compiles in seconds with ``nvcc`` alone — no PyTorch headers:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -Xptxas -v -o build/repro_torch/<name>-<hash>.so
+
+The library lands in ``build/repro_torch/`` at the repository root (listed
+in ``.gitignore``), named by a hash of its source, so an edited source
+rebuilds and an unchanged one loads the library already built.  The
+compiler's report (registers, shared memory, spills) is kept beside it as
+``<name>-<hash>.log``.  Nothing builds at import: the first CUDA launch
+of a kernel builds it, or :func:`build_all` builds every source at once,
+one ``nvcc`` process per source, all started together.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+
+import torch
+
+__all__ = ["SOURCES", "CSRC", "BUILD_DIR", "nvcc_path", "build_all", "load",
+           "check", "require", "stream_handle"]
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
+    "repro_torch"
+SOURCES = ("matmul", "jacobi")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str | None:
+    """``nvcc`` on PATH, else under ``CUDA_HOME`` or ``/usr/local/cuda``."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = pathlib.Path(home) / "bin" / "nvcc"
+    return str(cand) if cand.is_file() else None
+
+
+def _target(name: str) -> pathlib.Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() +
+                            " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def _start(name: str) -> tuple[pathlib.Path, subprocess.Popen] | None:
+    """Start ``nvcc`` for one source unless its library exists."""
+    target = _target(name)
+    if target.is_file():
+        return None
+    nvcc = nvcc_path()
+    if nvcc is None:
+        raise RuntimeError(
+            f"cannot build {name}.cu: nvcc not found (PATH, CUDA_HOME or "
+            "/usr/local/cuda/bin)")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    log = open(target.with_suffix(".log"), "w", encoding="utf-8")
+    proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                             str(CSRC / f"{name}.cu")],
+                            stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    return tmp, proc
+
+
+def _finish(name: str, tmp: pathlib.Path, proc: subprocess.Popen) -> None:
+    rc = proc.wait()
+    target = _target(name)
+    if rc != 0:
+        tmp.unlink(missing_ok=True)
+        report = target.with_suffix(".log").read_text(encoding="utf-8")
+        raise RuntimeError(f"nvcc failed on {name}.cu (exit {rc}):\n"
+                           f"{report}")
+    os.replace(tmp, target)       # atomic: concurrent processes agree
+
+
+def build_all(names=SOURCES) -> dict[str, pathlib.Path]:
+    """Build every named source (one ``nvcc`` each, all in parallel) and
+    return ``{name: library path}``."""
+    with _lock:
+        started = {n: _start(n) for n in names}
+        errors = []
+        for n, job in started.items():
+            if job is not None:
+                try:
+                    _finish(n, *job)
+                except RuntimeError as e:
+                    errors.append(str(e))
+        if errors:
+            raise RuntimeError("\n".join(errors))
+    return {n: _target(n) for n in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _loaded.get(name)
+    if lib is None:
+        path = build_all((name,))[name]
+        with _lock:
+            lib = _loaded.get(name)
+            if lib is None:
+                lib = _loaded[name] = ctypes.CDLL(str(path))
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a C entry reported a CUDA error (its ``cudaGetLastError``)."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
+
+
+def require(x: torch.Tensor, name: str, shape: tuple,
+            dtype: torch.dtype = torch.float32,
+            device: torch.device | None = None) -> None:
+    """Validate one kernel operand before its pointer goes to C: device
+    (a CUDA device, ``device`` when given), dtype, exact shape and
+    row-major contiguity.  Raises ``ValueError`` on anything the kernel
+    does not take."""
+    if x.device.type != "cuda" or (device is not None and
+                                   x.device != device):
+        raise ValueError(f"{name}: expected a tensor on "
+                         f"{device or 'a CUDA device'}, got {x.device}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def stream_handle(device: torch.device) -> int:
+    """PyTorch's current stream on ``device``, as the ``void*`` a C entry
+    takes."""
+    return torch.cuda.current_stream(device).cuda_stream
