@@ -10,23 +10,36 @@ Phases, each of which must pass (any failure exits non-zero):
 1. Card: print ``nvidia-smi --query-gpu=name,power.limit``.
 2. Build: compile every hand-written CUDA kernel from ``src/repro_torch/
    csrc`` (one ``nvcc`` per source, all started together).
-3. Kernels: at the shapes the paper's apps give them at the §4.2 sizes,
-   hold each kernel against its plain PyTorch version on the card (1e-4
-   for the GEMM and the tile update, 1e-6 for the halo stencil at all four
-   of the Jacobi app's halo shapes: corner, both edges, interior) and time
-   the kernel, the plain version and, where one PyTorch call computes the
-   same function, that call (``library_ms``), each with CUDA events,
-   L2 flushed before every launch.  ``bound_ms`` is the least time the
-   card could take: the bytes the function must move over 3.35 TB/s or
-   its FP32 operations over 67 TFLOP/s (H100 SXM data sheet), the larger.
-4. Apps (the main path): the five apps at the §4.2 sizes through
+3. Kernels: at the shapes the main paths give them, hold each kernel
+   against its plain PyTorch version on the card and time the kernel,
+   the plain version and, where one PyTorch call computes the same
+   function, that call (``library_ms``), each with CUDA events, L2
+   flushed before every launch.  Tolerances: 1e-4 for the GEMM and the
+   tile update, 1e-6 for the halo stencil at all four of the Jacobi app's
+   halo shapes (corner, both edges, interior), 2e-5 for flash decode
+   (``o`` and ``lse``) at the serve path's per-task shape and at
+   Mistral-NeMo-12B's decode width, rtol 1e-5 / atol 1e-3 for
+   Black-Scholes at the §4.2 app's 2,097,152 options plus put-call
+   parity at 1e-4.  ``bound_ms`` is the least time the card could take:
+   the bytes the function must move over 3.35 TB/s or its FP32
+   operations over 67 TFLOP/s (H100 SXM data sheet), the larger.
+4. Apps (main path 1): the five apps at the §4.2 sizes through
    ``TaskRuntime(executor="staged", kernel_backend="pallas",
    device="cuda")``; each verifies its own result against a plain
    reference.  The launch counters are zeroed just before and read just
-   after; the GEMM, the tile update and the halo stencil must each have
-   launched.
-5. Parity: at a small size, ``executor="sequential"`` against staged with
-   the wave kernels, all five apps, within each app's tolerance.
+   after each app; the GEMM, the tile update, the halo stencil and
+   Black-Scholes must each have launched.
+5. Serve (main path 2): ``repro_torch.serve_lm.run`` at ``CHIP_SIZES`` on
+   ``executor="host", device="cuda"``: every row verified against the
+   plain ``decode_mha``, ``requests x shards`` flash-decode launches
+   (counters zeroed just before, read just after), the admission peak
+   within the budget, and the restarted session's K and V bit-identical.
+   Prints req/s and p50/p99 request latency (host-side completion: a
+   task completes when its body has queued its kernels) and the
+   device's idle share in the serving window of a second, profiled run.
+6. Parity: at a small size, ``executor="sequential"`` against staged with
+   the wave kernels and against host, all five apps, within each app's
+   tolerance.
 
 Then one JSON line of kernel results, the card line again, and last
 ``{"ok": true, "device": {...}}``.
@@ -82,9 +95,17 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke: {what}")
 
 
+def _as_tuple(x) -> tuple:
+    return x if isinstance(x, tuple) else (x,)
+
+
 def kernel_phase(dev) -> list[dict]:
-    """Each kernel against its plain version at the §4.2 apps' shapes."""
+    """Each kernel against its plain version at its main path's shapes."""
     import torch
+    import torch.nn.functional as F
+    from repro_torch import serve_lm
+    from repro_torch.kernels.black_scholes import kernel as bs
+    from repro_torch.kernels.flash_decode import kernel as fd
     from repro_torch.kernels.jacobi import kernel as jac
     from repro_torch.kernels.matmul import kernel as mm
 
@@ -92,6 +113,9 @@ def kernel_phase(dev) -> list[dict]:
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
+
+    def uniform(lo, hi, n):
+        return lo + (hi - lo) * torch.rand(n, generator=gen, device=dev)
 
     flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
     rows = []
@@ -104,7 +128,7 @@ def kernel_phase(dev) -> list[dict]:
     rows.append(dict(
         name="matmul_batched", wrapper=lambda: mm.matmul_batched(a, b, c),
         plain=lambda: mm.matmul_batched_plain(a, b, c),
-        library=lambda: torch.baddbmm(c, a, b), tol=1e-4,
+        library=lambda: torch.baddbmm(c, a, b), rtol=1e-4, atol=1e-4,
         source="src/repro_torch/csrc/matmul.cu",
         replaces="src/repro/kernels/matmul/kernel.py:38",
         shape=f"{n}x({m},{k})x({k},{nn})", bound=bound(nbytes, flops)))
@@ -119,7 +143,7 @@ def kernel_phase(dev) -> list[dict]:
         wrapper=lambda: mm.tile_update_batched(cu, au, bu),
         plain=lambda: mm.tile_update_batched_plain(cu, au, bu),
         library=lambda: torch.baddbmm(cu, au, bu.transpose(1, 2),
-                                      alpha=-1.0), tol=1e-4,
+                                      alpha=-1.0), rtol=1e-4, atol=1e-4,
         source="src/repro_torch/csrc/matmul.cu",
         replaces="src/repro/kernels/matmul/kernel.py:83",
         shape=f"{n}x({m},{k})x({nn},{k})^T", bound=bound(nbytes, flops)))
@@ -156,61 +180,142 @@ def kernel_phase(dev) -> list[dict]:
     flops = 4 * n * tile * tile
     rows.append(dict(
         name="jacobi_halo_batched", wrapper=wrapper, plain=plain,
-        library=None, tol=1e-6, checks=list(jac_cases.values()),
+        library=None, rtol=1e-6, atol=1e-6, checks=list(jac_cases.values()),
         source="src/repro_torch/csrc/jacobi.cu",
         replaces="src/repro/kernels/jacobi/kernel.py:41",
         shape=shape, bound=bound(nbytes, flops)))
+
+    # flash decode: the serve path's per-task shape (one query row against
+    # one 512-row KV tile at head_dim 128) is the row's time; the same
+    # kernel at Mistral-NeMo-12B's decode width (B 4, Hq 32, Hkv 8, 32k
+    # tokens) is checked and timed too, in "wide"
+    def fd_case(b, hq, hkv, s, d):
+        q, kk, vv = randn(b, hq, d), randn(b, hkv, s, d), randn(b, hkv, s, d)
+        scale = d ** -0.5
+        nbytes = 4 * (q.numel() + kk.numel() + vv.numel() + b * hq * d +
+                      b * hq)
+        flops = 4 * b * hq * s * d            # q.k and p.v
+        return dict(
+            shape=f"q({b},{hq},{d}) kv({b},{hkv},{s},{d})",
+            wrapper=lambda: fd.flash_decode(q, kk, vv, scale, bk=s),
+            plain=lambda: fd.flash_decode_plain(q, kk, vv, scale),
+            library=lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kk, vv, scale=scale, enable_gqa=True),
+            bound=bound(nbytes, flops))
+
+    sizes = serve_lm.CHIP_SIZES
+    serve_case = fd_case(1, 1, 1, sizes["s_tile"], sizes["d"])
+    wide_case = fd_case(4, 32, 8, 32768, 128)
+    rows.append(dict(
+        name="flash_decode", rtol=2e-5, atol=2e-5,
+        source="src/repro_torch/csrc/flash_decode.cu",
+        replaces="src/repro/kernels/flash_decode/kernel.py:58",
+        wide=wide_case, **serve_case))
+
+    # Black-Scholes: the §4.2 app's 2,097,152 options in one launch (the
+    # staged group of its 4096 tasks), inputs drawn as the app draws them
+    n = 4096 * 512
+    opts = (uniform(10, 200, n), uniform(10, 200, n), uniform(0.1, 2.0, n),
+            torch.full((n,), 0.03, device=dev), uniform(0.1, 0.6, n))
+    rows.append(dict(
+        name="black_scholes", wrapper=lambda: bs.black_scholes(*opts),
+        plain=lambda: bs.black_scholes_plain(*opts), library=None,
+        rtol=1e-5, atol=1e-3, source="src/repro_torch/csrc/black_scholes.cu",
+        replaces="src/repro/kernels/black_scholes/kernel.py:38",
+        shape=f"{n} options", bound=bound(7 * 4 * n, 60 * n)))
 
     results = []
     for row in rows:
         checks = row.get("checks") or [(row["shape"], row["wrapper"],
                                          row["plain"])]
+        if "wide" in row:
+            w = row["wide"]
+            checks.append((w["shape"], w["wrapper"], w["plain"]))
         err = 0.0
         for shape, wrapper, plain in checks:
-            got = wrapper()
-            want = plain()
+            got = _as_tuple(wrapper())
+            want = _as_tuple(plain())
             torch.cuda.synchronize()
-            case_err = (got - want).abs().max().item()
-            ok = bool(torch.allclose(got, want, rtol=row["tol"],
-                                     atol=row["tol"]))
-            ok = ok and bool(torch.isfinite(got).all().item())
+            case_err = max((x - y).abs().max().item()
+                           for x, y in zip(got, want))
+            ok = all(bool(torch.allclose(x, y, rtol=row["rtol"],
+                                         atol=row["atol"])) and
+                     bool(torch.isfinite(x).all().item())
+                     for x, y in zip(got, want))
             print(f"[kernel] {row['name']} {shape}: max_abs_err={case_err} "
-                  f"tol={row['tol']} {'ok' if ok else 'FAIL'}", flush=True)
+                  f"rtol={row['rtol']} atol={row['atol']} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
             check(ok, f"{row['name']} {shape} disagrees with its plain "
                       f"version (max_abs_err {case_err}, tolerance "
-                      f"{row['tol']})")
+                      f"{row['rtol']}/{row['atol']})")
             err = max(err, case_err)
         ms = time_ms(row["wrapper"], flush)
         plain_ms = time_ms(row["plain"], flush)
         library_ms = (time_ms(row["library"], flush)
                       if row["library"] is not None else None)
         bound_ms, bound_by = row["bound"]
-        print(f"[kernel] {row['name']}: ms={ms} plain_ms={plain_ms} "
-              f"library_ms={library_ms} bound_ms={bound_ms} ({bound_by})",
-              flush=True)
-        results.append(dict(name=row["name"], route="cuda",
-                            source=row["source"], replaces=row["replaces"],
-                            launches=0, max_abs_err=err, ms=ms,
-                            plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by, library_ms=library_ms))
+        print(f"[kernel] {row['name']} {row['shape']}: ms={ms} "
+              f"plain_ms={plain_ms} library_ms={library_ms} "
+              f"bound_ms={bound_ms} ({bound_by})", flush=True)
+        result = dict(name=row["name"], route="cuda", source=row["source"],
+                      replaces=row["replaces"], launches=0,
+                      max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                      bound_ms=bound_ms, bound_by=bound_by,
+                      library_ms=library_ms, shape=row["shape"])
+        if "wide" in row:
+            w = row["wide"]
+            wide = dict(shape=w["shape"], ms=time_ms(w["wrapper"], flush),
+                        plain_ms=time_ms(w["plain"], flush),
+                        library_ms=time_ms(w["library"], flush),
+                        bound_ms=w["bound"][0], bound_by=w["bound"][1])
+            print(f"[kernel] {row['name']} {w['shape']}: " +
+                  " ".join(f"{k}={v}" for k, v in wide.items()
+                           if k != "shape"), flush=True)
+            result["wide"] = wide
+        results.append(result)
+    parity_of_black_scholes(dev, gen)
     del flush
     return results
 
 
+def parity_of_black_scholes(dev, gen) -> None:
+    """Put-call parity of the kernel's prices, at 1e-4, on the reference
+    test's option distribution (spot 50..150, strike 100, t 1, rate 0.05,
+    vol 0.3) at the app's 2,097,152 options."""
+    import torch
+    from repro_torch.kernels.black_scholes import kernel as bs
+    n = 4096 * 512
+    spot = 50 + 100 * torch.rand(n, generator=gen, device=dev)
+    strike, t, rate, vol = (torch.full((n,), x, device=dev)
+                            for x in (100.0, 1.0, 0.05, 0.3))
+    call, put = bs.black_scholes(spot, strike, t, rate, vol)
+    worst = (call - put - (spot - strike * torch.exp(-rate * t))) \
+        .abs().max().item()
+    print(f"[kernel] black_scholes put-call parity: max_abs={worst} "
+          f"atol=1e-4 {'ok' if worst <= 1e-4 else 'FAIL'}", flush=True)
+    check(worst <= 1e-4, f"black_scholes put-call parity off by {worst}")
+
+
 def app_phase(dev) -> dict[str, int]:
-    """The main path: the five apps at §4.2 sizes on the wave kernels."""
+    """Main path 1: the five apps at §4.2 sizes on the wave kernels."""
     import torch
     from repro_torch import RuntimeConfig, TaskRuntime, apps
+    from repro_torch.kernels.black_scholes import kernel as bs
     from repro_torch.kernels.jacobi import kernel as jac
     from repro_torch.kernels.matmul import kernel as mm
     from repro_torch.obs import InMemoryTracker
 
-    wrappers = {"matmul_batched": mm.matmul_batched,
-                "tile_update_batched": mm.tile_update_batched,
-                "jacobi_halo_batched": jac.jacobi_halo_batched}
+    # the wave-registry kernels, launched once per wave-kernel dispatch
+    wave = {"matmul_batched": mm.matmul_batched,
+            "tile_update_batched": mm.tile_update_batched,
+            "jacobi_halo_batched": jac.jacobi_halo_batched}
+    # Black-Scholes launches through its operator's vmap rule, once per
+    # staged group of _price tasks (non_rectangular for the registry)
+    wrappers = {**wave, "black_scholes": bs.black_scholes}
     must_launch = {"matmul": "matmul_batched",
                    "cholesky": "tile_update_batched",
-                   "jacobi": "jacobi_halo_batched"}
+                   "jacobi": "jacobi_halo_batched",
+                   "black_scholes": "black_scholes"}
     total = dict.fromkeys(wrappers, 0)
     for name in ("black_scholes", "matmul", "fft", "jacobi", "cholesky"):
         trk = InMemoryTracker()
@@ -247,15 +352,83 @@ def app_phase(dev) -> dict[str, int]:
             kernel_dispatches=stats.kernel_dispatches,
             kernel_fallbacks=stats.kernel_fallbacks,
             fallbacks_by_reason=fallbacks, launches=launches)), flush=True)
-        check(stats.kernel_dispatches == sum(launches.values()),
+        wave_launches = sum(launches[k] for k in wave)
+        check(stats.kernel_dispatches == wave_launches,
               f"{name}: {stats.kernel_dispatches} wave-kernel dispatches "
-              f"but {sum(launches.values())} launches")
+              f"but {wave_launches} launches")
         if name in must_launch:
             check(launches[must_launch[name]] > 0,
                   f"{name}: {must_launch[name]} never launched")
         for k, v in launches.items():
             total[k] += v
     return total
+
+
+def _idle_share(prof, span: str):
+    """(idle share, device busy ms, window s) inside the profiler range
+    ``span``: device kernel and copy time clipped to the range, over the
+    range's length; (None, None, window) when the trace holds no device
+    events."""
+    from torch.autograd import DeviceType
+    events = prof.events()
+    windows = [e for e in events
+               if e.name == span and e.device_type == DeviceType.CPU]
+    check(len(windows) == 1, f"{len(windows)} profiler ranges {span}")
+    t0, t1 = windows[0].time_range.start, windows[0].time_range.end
+    busy_us = 0.0
+    for e in events:
+        if e.device_type == DeviceType.CUDA and e.name != span:
+            busy_us += max(0.0, min(e.time_range.end, t1) -
+                           max(e.time_range.start, t0))
+    if busy_us == 0.0:
+        return None, None, (t1 - t0) / 1e6
+    return 1.0 - busy_us / (t1 - t0), busy_us / 1e3, (t1 - t0) / 1e6
+
+
+def serve_phase(dev) -> int:
+    """Main path 2: decode requests served through the host executor and
+    ``repro_torch.serve`` at ``serve_lm.CHIP_SIZES``."""
+    import torch
+    from repro_torch import RuntimeConfig, serve_lm
+    from repro_torch.kernels.flash_decode import kernel as fd
+
+    sizes = serve_lm.CHIP_SIZES
+    config = RuntimeConfig(executor="host", device=str(dev))
+    serve_lm.run(config)                  # warm-up at the example's sizes
+    fd.flash_decode.launches = 0
+    r = serve_lm.run(config, **sizes)     # verifies, checkpoints, restores
+    launches = fd.flash_decode.launches
+    st = r["stats"]
+    want = sizes["requests"] * sizes["shards"]
+    check(r["rows_verified"] == sizes["requests"], "serve: rows unverified")
+    check(launches == want,
+          f"serve: {launches} flash_decode launches, expected {want}")
+    check(st.admission_peak_bytes <= st.admission_budget_bytes,
+          "serve: admission peak over the budget")
+    check(r["restore_identical"], "serve: restored arena differs")
+    check(tuple(r["out"].shape) == (sizes["requests"], sizes["d"]) and
+          bool(torch.isfinite(r["out"]).all().item()),
+          "serve: output rows not finite or misshapen")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        profiled = serve_lm.run(config, **sizes)
+    idle, busy_ms, window_s = _idle_share(prof, serve_lm.SERVE_SPAN)
+    print("[serve] " + json.dumps(dict(
+        sizes=sizes, executor="host", wall_s=r["wall_s"],
+        req_per_s=r["req_per_s"], p50_ms=r["p50_ms"], p99_ms=r["p99_ms"],
+        latency="host-side completion (a task is complete once its body "
+                "has queued its kernels)",
+        rows_verified=r["rows_verified"], max_abs_err=r["max_abs_err"],
+        flash_decode_launches=launches, tasks=st.tasks_spawned,
+        worker_tasks=st.worker_tasks, worker_busy_s=st.worker_busy_s,
+        admission_peak_bytes=st.admission_peak_bytes,
+        admission_budget_bytes=st.admission_budget_bytes,
+        epoch=r["epoch"], restored_epoch=r["restored_epoch"],
+        restore_identical=r["restore_identical"],
+        profiled_wall_s=profiled["wall_s"], profiled_window_s=window_s,
+        device_busy_ms=busy_ms, idle_share=idle)), flush=True)
+    return launches
 
 
 PARITY_SIZES = {
@@ -271,31 +444,36 @@ PARITY_TOL = {"black_scholes": (1e-5, 1e-3), "matmul": (2e-4, 2e-4),
 
 
 def parity_phase(dev) -> None:
-    """Sequential vs staged with the wave kernels, small sizes, on the
-    card."""
+    """Sequential vs staged with the wave kernels and vs host, small
+    sizes, on the card."""
     import torch
     from repro_torch import RuntimeConfig, TaskRuntime, apps
 
     for name, size in PARITY_SIZES.items():
         outs = {}
         for executor, backend in (("sequential", "xla"),
-                                  ("staged", "pallas")):
+                                  ("staged", "pallas"), ("host", "xla")):
             rt = TaskRuntime(RuntimeConfig(
                 executor=executor, kernel_backend=backend,
                 device=str(dev)))
-            out = apps.APPS[name](rt, **size)
-            rt.shutdown()
+            try:
+                out = apps.APPS[name](rt, **size)
+                rt.barrier()
+            finally:
+                rt.shutdown()
             outs[executor] = [a.gather() for a in
                               (out if isinstance(out, tuple) else (out,))]
         rtol, atol = PARITY_TOL[name]
-        worst = 0.0
-        for s, g in zip(outs["sequential"], outs["staged"]):
-            if name == "cholesky":
-                s, g = torch.tril(s), torch.tril(g)
-            worst = max(worst, (s - g).abs().max().item())
-            check(bool(torch.allclose(g, s, rtol=rtol, atol=atol)),
-                  f"parity {name}: staged+kernels differ from sequential")
-        print(f"[parity] {name} {size}: max_abs_diff={worst} ok", flush=True)
+        for executor in ("staged", "host"):
+            worst = 0.0
+            for s, g in zip(outs["sequential"], outs[executor]):
+                if name == "cholesky":
+                    s, g = torch.tril(s), torch.tril(g)
+                worst = max(worst, (s - g).abs().max().item())
+                check(bool(torch.allclose(g, s, rtol=rtol, atol=atol)),
+                      f"parity {name}: {executor} differs from sequential")
+            print(f"[parity] {name} {size} {executor}: "
+                  f"max_abs_diff={worst} ok", flush=True)
 
 
 def main() -> int:
@@ -326,6 +504,7 @@ def main() -> int:
 
     kernels = kernel_phase(dev)
     launches = app_phase(dev)
+    launches["flash_decode"] = serve_phase(dev)
     for row in kernels:
         row["launches"] = launches[row["name"]]
     parity_phase(dev)

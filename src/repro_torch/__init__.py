@@ -7,6 +7,10 @@ wave kernels written by hand in CUDA C++ for Hopper (``csrc/``)::
 
     from repro_torch import RuntimeConfig, TaskRuntime, task
 
+and serving loops::
+
+    from repro_torch.serve import ServeConfig, Session
+
 This package imports neither JAX nor ``repro``; ``repro`` stays the
 reference the tests hold it against.
 """

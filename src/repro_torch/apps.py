@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from .core import RuntimeConfig, TaskRuntime, register_wave_kernel, task
+from .kernels.black_scholes import ops as bs_ops
 from .kernels.black_scholes import ref as bs_ref
 from .kernels.cholesky import ops as chol_ops
 from .kernels.jacobi import kernel as jac_kernel
@@ -61,7 +62,7 @@ def _verify(got: torch.Tensor, want, rtol: float, atol: float) -> None:
 # ---------------------------------------------------------------------------
 @task(in_=("spot", "strike", "t", "rate", "vol"), out=("call", "put"))
 def _price(spot, strike, t, rate, vol, call=None, put=None):
-    return bs_ref.black_scholes(spot, strike, t, rate, vol)
+    return bs_ops.black_scholes(spot, strike, t, rate, vol)
 
 
 def black_scholes_app(rt: TaskRuntime, n_options: int = 8192,

@@ -9,7 +9,8 @@ module, with tiles as torch tensors on one device:
 * :mod:`graph`      — task descriptors, descriptor pool, ready/completion queues
 * :mod:`mpb`        — message-passing-buffer SPSC descriptor rings
 * :mod:`scheduler`  — the master's running/polling modes + lazy release
-* :mod:`executor`   — sequential (oracle) / staged (wavefront batching) execution
+* :mod:`executor`   — sequential (oracle) / host (master + worker threads) /
+  staged (wavefront batching) execution
 * :mod:`wavekernel` — the registry of hand-written wave kernels
 * :mod:`placement`  — memory-controller striping (block homes)
 """

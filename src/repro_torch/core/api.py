@@ -232,7 +232,6 @@ def _check_choice(field: str, value, choices: tuple[str, ...]) -> str:
 #: queue 1 item that brings each one; asking for them raises
 #: ``NotImplementedError`` instead of substituting another executor
 UNPORTED = {
-    ("executor", "host"): "ROADMAP.md queue 1 item 4 (host executor)",
     ("dep_manager", "sharded"):
         "ROADMAP.md queue 1 item 6 (sharded dependence managers)",
     ("executor", "sim"):
@@ -251,9 +250,10 @@ class RuntimeConfig:
     Every choice field accepts the plain string or the matching typed
     member, and ``validate()`` normalizes members to their string values.
 
-    * ``executor``    — "sequential" (serial-elision oracle) or "staged"
-      (wavefront batching).  "host", "sim" and "sharded" are valid
-      spellings that this port does not run yet: the runtime raises
+    * ``executor``    — "host" (the default: master + worker threads over
+      MPB rings), "sequential" (serial-elision oracle) or "staged"
+      (wavefront batching).  "sim" and "sharded" are valid spellings
+      that this port does not run yet: the runtime raises
       ``NotImplementedError`` naming their ``ROADMAP.md`` item
       (:data:`UNPORTED`).
     * ``n_workers`` / ``mpb_slots`` — worker count and per-worker MPB ring
@@ -286,7 +286,8 @@ class RuntimeConfig:
       ``"jsonl"``, ``"jsonl:PATH"``) or a ready ``Tracker`` instance.
     * ``profile_waves`` — wrap each staged wave dispatch in a
       ``torch.profiler.record_function`` range so profiles name waves.
-    * ``worker_cache_tiles`` — host executor only; validated, inert.
+    * ``worker_cache_tiles`` — host executor: each worker's pinned tile
+      cache holds up to this many assembled READS regions (0 = off).
     * ``device``      — where tiles live and kernels run: ``"cuda"`` (the
       default; the runtime raises when CUDA is absent, it never carries
       on on the CPU by itself) or ``"cpu"``, which runs every kernel's

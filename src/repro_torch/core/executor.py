@@ -1,20 +1,22 @@
 """Executors: how a discovered task graph actually runs.
 
 * :class:`SequentialExecutor` — serial elision; the oracle for tests.
+* :class:`HostExecutor` — the paper's dynamic runtime: the spawning
+  thread is the master, worker threads drain their MPB descriptor rings
+  and run the task bodies (bounded slots, spawns that never block, lazy
+  collection and release).
 * :class:`StagedExecutor` — the DAG is layered into wavefronts and each
   wavefront's identical tile tasks are fused into one batched dispatch:
   one ``torch.func.vmap(fn)`` call, or with ``kernel_backend="pallas"``
   one launch of the hand-written wave kernel registered for the body
   (``core/wavekernel.py``).  The dependence analysis is unchanged, only
   the dispatch is batched.
-
-The JAX package's host executor (master/worker threads over MPB rings) is
-ROADMAP.md queue 1 item 4 and not ported yet.
 """
 from __future__ import annotations
 
+import threading
 import time
-from collections import defaultdict
+from collections import OrderedDict, defaultdict
 from typing import Callable, Iterable, Protocol, Sequence, runtime_checkable
 
 import torch
@@ -24,9 +26,10 @@ from ..obs.tracker import NULL_TRACKER
 from . import wavekernel
 from .api import suspend_runtime_scope
 from .graph import TaskDescriptor, TaskGraph, TaskState, normalize_outputs
+from .mpb import MPBQueue
 from .scheduler import MasterScheduler
 
-__all__ = ["Executor", "ExecutorBase", "SequentialExecutor",
+__all__ = ["Executor", "ExecutorBase", "SequentialExecutor", "HostExecutor",
            "StagedExecutor", "dependence_cone"]
 
 
@@ -34,8 +37,9 @@ __all__ = ["Executor", "ExecutorBase", "SequentialExecutor",
 class Executor(Protocol):
     """What the runtime front-end requires of an execution strategy.
 
-    Implementations: :class:`SequentialExecutor` (serial elision) and
-    :class:`StagedExecutor` (wavefront batching).
+    Implementations: :class:`SequentialExecutor` (serial elision),
+    :class:`HostExecutor` (the paper's dynamic master/worker protocol)
+    and :class:`StagedExecutor` (wavefront batching).
     """
 
     def on_spawn(self, td: TaskDescriptor, ready: bool) -> None:
@@ -134,6 +138,165 @@ class SequentialExecutor(ExecutorBase):
     def wait_for(self, tds) -> None:
         # every task ran at its spawn; nothing can be outstanding
         assert all(td.is_complete for td in tds)
+
+
+# ---------------------------------------------------------------------------
+class _Worker(threading.Thread):
+    """A worker core: drains its MPB ring, executes tasks, marks slots
+    completed (§3.5).
+
+    Pinned tile cache: each worker keeps up to ``cache_tiles`` assembled
+    READS operands, keyed by region identity and validated by the
+    *identity* of the constituent tile tensors.  Identity is exact
+    freshness only because every write swaps in a new tensor
+    (``BlockArray.set_tile``, ``Region.store``) and nothing on the task
+    path writes a stored tile in place; the cached entry pins its tiles,
+    ruling out id reuse.  A hit skips region reassembly.
+
+    A body that raises does not end the thread: the exception is kept on
+    the descriptor (``td.error``) and in ``failures``, the slot is marked
+    completed, and the master re-raises it.
+
+    On CUDA every worker launches on the device's default stream (the
+    per-thread current stream, which nothing here changes), so a kernel
+    queued by one worker runs after every kernel queued before it by any
+    worker: a task counts as complete once its body has *queued* its
+    work, and ordering on the one stream keeps its dependents correct.
+    """
+
+    def __init__(self, wid: int, queue: MPBQueue, failures: list,
+                 cache_tiles: int = 0):
+        super().__init__(name=f"bddt-worker-{wid}", daemon=True)
+        self.wid = wid
+        self.queue = queue
+        self.failures = failures
+        self.stop_flag = threading.Event()
+        self.busy_s = 0.0
+        self.tasks_run = 0
+        self.cache_tiles = cache_tiles
+        self.cache_hits = 0
+        self.cache_misses = 0
+        # region key -> (pinned tile tensors, assembled value), LRU order
+        self._cache: OrderedDict = OrderedDict()
+
+    def _materialize(self, region):
+        if not self.cache_tiles:
+            return region.materialize()
+        key = (region.array.array_id, region.ranges)
+        tiles = tuple(region.array.get_tile(i) for i in region.tile_indices)
+        hit = self._cache.get(key)
+        if hit is not None and len(hit[0]) == len(tiles) and \
+                all(a is b for a, b in zip(hit[0], tiles)):
+            self.cache_hits += 1
+            self._cache.move_to_end(key)
+            return hit[1]
+        self.cache_misses += 1
+        value = region.materialize()
+        self._cache[key] = (tiles, value)
+        self._cache.move_to_end(key)
+        while len(self._cache) > self.cache_tiles:
+            self._cache.popitem(last=False)
+        return value
+
+    def run(self) -> None:
+        while not self.stop_flag.is_set():
+            td = self.queue.next_ready(timeout=0.05)
+            if td is None:
+                continue
+            td.state = TaskState.RUNNING
+            t0 = time.perf_counter()
+            try:
+                td.run(materialize=self._materialize)
+            except Exception as exc:         # handed to the master
+                td.error = exc
+                self.failures.append(td)
+            self.busy_s += time.perf_counter() - t0
+            self.tasks_run += 1
+            self.queue.mark_completed(td)
+
+
+class HostExecutor(ExecutorBase):
+    """The paper's runtime: master = the spawning host thread, one
+    :class:`_Worker` thread per MPB ring.
+
+    The one departure from the reference: a task body that raises on a
+    worker is re-raised from the master's next ``barrier``, ``wait_for``,
+    ``pump`` or ``reclaim`` (the reference's worker thread would die and
+    leave the master polling forever)."""
+
+    kind = "host"
+
+    def __init__(self, graph: TaskGraph, scheduler: MasterScheduler,
+                 queues: list[MPBQueue], cache_tiles: int = 0):
+        self.graph = graph
+        self.scheduler = scheduler
+        self.queues = queues
+        self._cache_reported = False
+        self.failures: list[TaskDescriptor] = []
+        self.workers = [_Worker(q.worker_id, q, self.failures,
+                                cache_tiles=cache_tiles)
+                        for q in queues]
+        for w in self.workers:
+            w.start()
+
+    def _check(self) -> None:
+        """Re-raise the first exception a task body raised on a worker."""
+        if self.failures:
+            raise self.failures[0].error
+
+    def _step(self) -> None:
+        """One master polling step, then surface a worker's failure."""
+        self.scheduler.polling_step()
+        self._check()
+
+    def on_spawn(self, td: TaskDescriptor, ready: bool) -> None:
+        if ready:
+            # running mode: one attempt, never block (§3.4)
+            self.scheduler.schedule_running(td)
+        # dependent tasks stay in the task graph until released
+
+    def barrier(self) -> None:
+        # polling mode until every spawned task has been released
+        self._check()
+        while not self.graph.quiescent:
+            self._step()
+            if not self.graph.quiescent:
+                time.sleep(0)  # yield to worker threads
+
+    def wait_for(self, tds) -> None:
+        """Polling mode scoped to ``tds``: the master polls/schedules/
+        releases until the waited-on tasks completed, then returns to the
+        main program — in-flight unrelated tasks keep running on their
+        workers undisturbed."""
+        self._check()
+        while not all(td.is_complete for td in tds):
+            self._step()
+            if not all(td.is_complete for td in tds):
+                time.sleep(0)
+
+    def pump(self) -> None:
+        """One non-blocking master step: poll worker rings, release
+        completed tasks, dispatch newly-ready ones.  Serving loops call
+        this between arrivals so completions surface without forcing a
+        dependence-cone wait."""
+        self._step()
+
+    def reclaim(self) -> None:
+        # §3.3: master blocks until a task completes, freeing a descriptor
+        while self.scheduler.pool.free == 0:
+            self._step()
+            time.sleep(0)
+
+    def shutdown(self) -> None:
+        for w in self.workers:
+            w.stop_flag.set()
+        for w in self.workers:
+            w.join(timeout=2.0)
+        if self.obs.enabled and not self._cache_reported:
+            self._cache_reported = True
+            for w in self.workers:
+                self.obs.emit("tile_cache", worker=w.wid,
+                              hits=w.cache_hits, misses=w.cache_misses)
 
 
 # ---------------------------------------------------------------------------

@@ -68,6 +68,9 @@ class TaskDescriptor:
     # task's values even after later writers overwrite the region; None
     # until executed
     output_values: tuple | None = None
+    # what the body raised on a host worker; the master re-raises it
+    # from its next barrier, wait or pump (None on success)
+    error: BaseException | None = None
 
     @property
     def is_complete(self) -> bool:

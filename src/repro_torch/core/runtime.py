@@ -10,7 +10,7 @@ runtime scope::
     def gemm(c, a, b, alpha=1.0):
         return c + alpha * (a @ b)
 
-    with TaskRuntime(RuntimeConfig(executor="staged", device="cuda")) as rt:
+    with TaskRuntime(RuntimeConfig(executor="host", n_workers=4)) as rt:
         A = rt.from_array(a, block_shape=(64, 64))
         B = rt.from_array(b, block_shape=(64, 64))
         C = rt.zeros((n, n), block_shape=(64, 64))
@@ -48,7 +48,8 @@ from .api import (UNPORTED, ExecutorKind, RuntimeConfig, RuntimeStats,
 from .blocks import (AccessMode, BlockArray, Region, TileTraffic,
                      coerce_mode, resolve_device)
 from .deps import DependenceAnalyzer
-from .executor import Executor, SequentialExecutor, StagedExecutor
+from .executor import (Executor, HostExecutor, SequentialExecutor,
+                       StagedExecutor)
 from .graph import DescriptorPool, TaskDescriptor, TaskGraph
 from .mpb import MPBQueue
 from .placement import assign_homes
@@ -58,7 +59,8 @@ __all__ = ["TaskRuntime"]
 
 
 class TaskRuntime:
-    """One master + the block store on one device, wired per the paper."""
+    """One master + N workers + the block store on one device, wired per
+    the paper."""
 
     def __init__(self, config: RuntimeConfig | None = None, **overrides):
         if config is None:
@@ -109,6 +111,10 @@ class TaskRuntime:
         self._exec.traffic = self.traffic
         self._exec.profile = config.profile_waves
         self._arrays: list[BlockArray] = []
+        # ``repro_torch.serve`` attaches its AdmissionController here so
+        # ``stats()`` surfaces the admission_* fields; None when the
+        # runtime is not serving
+        self.admission = None
         self._spawn_counter = 0
         self.spawn_time_s = 0.0
         self.barrier_time_s = 0.0
@@ -119,6 +125,9 @@ class TaskRuntime:
     def _make_executor(self, config: RuntimeConfig) -> Executor:
         if config.executor == ExecutorKind.SEQUENTIAL:
             return SequentialExecutor(self.graph, self.scheduler)
+        if config.executor == ExecutorKind.HOST:
+            return HostExecutor(self.graph, self.scheduler, self.queues,
+                                cache_tiles=config.worker_cache_tiles)
         return StagedExecutor(self.graph, self.scheduler, self.device,
                               group=config.group_waves,
                               kernel_backend=config.kernel_backend)
@@ -269,6 +278,12 @@ class TaskRuntime:
             futures_resolved=self.futures_resolved,
             mpb_full_rejections=sum(q.full_rejections for q in self.queues),
         )
+        if isinstance(self._exec, HostExecutor):
+            s.worker_busy_s = [w.busy_s for w in self._exec.workers]
+            s.worker_tasks = [w.tasks_run for w in self._exec.workers]
+            s.worker_cache_hits = [w.cache_hits for w in self._exec.workers]
+            s.worker_cache_misses = [w.cache_misses
+                                     for w in self._exec.workers]
         if isinstance(self._exec, StagedExecutor):
             s.waves = self._exec.waves_run
             s.grouped_dispatches = self._exec.grouped_dispatches
@@ -278,4 +293,13 @@ class TaskRuntime:
         s.tile_moves = self.traffic.tile_moves
         s.bytes_moved = self.traffic.bytes_moved
         s.bytes_staged = self.traffic.bytes_staged
+        # serving admission controller (attached by repro_torch.serve)
+        if self.admission is not None:
+            a = self.admission
+            s.admission_submitted = a.submitted
+            s.admission_admitted = a.admitted
+            s.admission_rejected = a.rejected
+            s.admission_deferred = a.deferred
+            s.admission_peak_bytes = a.peak_in_flight_bytes
+            s.admission_budget_bytes = a.budget_bytes
         return s

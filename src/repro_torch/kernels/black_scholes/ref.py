@@ -2,9 +2,8 @@
 ``kernels/black_scholes/ref.py``).
 
 The paper's Black-Scholes benchmark prices 2M options in tasks of 512
-options — an embarrassingly parallel elementwise workload.  Its Pallas
-kernel is not ported yet (ROADMAP.md queue 2): the app's rank-1 regions
-keep it off the wave-kernel path.
+options — an embarrassingly parallel elementwise workload.  This is the
+plain version of the hand-written kernel in ``kernel.py``.
 """
 import torch
 

@@ -9,14 +9,18 @@ toolkit::
 
 Each kernel is held against its plain PyTorch version on the same
 tensors on the card, at the reference's tolerances (1e-4 for the GEMM
-and the tile update, 1e-6 for the halo stencil); the app tests drive the
-wave backend end to end and check that the registered kernels launched.
+and the tile update, 1e-6 for the halo stencil, 2e-5 for flash decode,
+rtol 1e-5 / atol 1e-3 for Black-Scholes); the app tests drive the wave
+backend end to end and check that the registered kernels launched, and
+the serving tests drive the host executor on the card.
 """
 import pytest
 import torch
 
-from repro_torch import RuntimeConfig, TaskRuntime, apps
+from repro_torch import RuntimeConfig, TaskRuntime, apps, serve_lm, task
 from repro_torch.kernels import _build
+from repro_torch.kernels.black_scholes import kernel as bs_kernel
+from repro_torch.kernels.flash_decode import kernel as fd_kernel
 from repro_torch.kernels.jacobi import kernel as jac_kernel
 from repro_torch.kernels.matmul import kernel as mm_kernel
 
@@ -117,3 +121,127 @@ def test_cuda_sequential_and_staged_kernels_agree(cuda_device):
             outs[executor] = apps.matmul_app(rt, n=256, tile=64).gather()
     torch.testing.assert_close(outs["staged"], outs["sequential"],
                                rtol=2e-4, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# flash decode and Black-Scholes
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,s,d", [
+    (1, 1, 1, 512, 128),          # the serve path's per-task shape
+    (1, 1, 1, 200, 128),          # S not a multiple of 32
+    (3, 6, 2, 77, 64),            # G = 3, ragged S
+    (2, 8, 2, 1000, 32),
+    (1, 32, 8, 4096, 128),        # Mistral-NeMo-12B's GQA width
+])
+def test_cuda_flash_decode_matches_plain(cuda_device, b, hq, hkv, s, d):
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q = torch.randn((b, hq, d), generator=g, device=cuda_device)
+    k, v = (torch.randn((b, hkv, s, d), generator=g, device=cuda_device)
+            for _ in range(2))
+    before = fd_kernel.flash_decode.launches
+    o, lse = fd_kernel.flash_decode(q, k, v, bk=s)
+    torch.cuda.synchronize()
+    assert fd_kernel.flash_decode.launches == before + 1
+    wo, wl = fd_kernel.flash_decode_plain(q, k, v, d ** -0.5)
+    torch.testing.assert_close(o, wo, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(lse, wl, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,offset", [(1, 0), (3, 0), (1001, 0),
+                                      (2048, 1), ((1 << 20) + 3, 0)])
+def test_cuda_black_scholes_matches_plain(cuda_device, n, offset):
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+
+    def col(lo, hi):
+        x = torch.rand(n + offset, generator=g, device=cuda_device)
+        return (lo + (hi - lo) * x)[offset:]   # offset 1: not 16-B aligned
+
+    xs = [col(10, 200), col(10, 200), col(0.1, 2.0),
+          torch.full((n,), 0.03, device=cuda_device), col(0.1, 0.6)]
+    before = bs_kernel.black_scholes.launches
+    call, put = bs_kernel.black_scholes(*xs)
+    torch.cuda.synchronize()
+    assert bs_kernel.black_scholes.launches == before + 1
+    wc, wp = bs_kernel.black_scholes_plain(*xs)
+    torch.testing.assert_close(call, wc, rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(put, wp, rtol=1e-5, atol=1e-3)
+    parity = call - put - (xs[0] - xs[1] * torch.exp(-xs[3] * xs[2]))
+    assert parity.abs().max().item() < 1e-2 * xs[0].abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_new_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    q = torch.zeros(1, 2, 64, device=cuda_device)
+    k = torch.zeros(1, 1, 64, 64, device=cuda_device)
+    with pytest.raises(ValueError):
+        fd_kernel.flash_decode(q.double(), k.double(), k.double())
+    with pytest.raises(ValueError):
+        fd_kernel.flash_decode(q, k.mT.contiguous().mT, k)  # not contiguous
+    with pytest.raises(ValueError):
+        fd_kernel.flash_decode(q, k, k.cpu())               # mixed devices
+    with pytest.raises(ValueError, match="head dim"):
+        fd_kernel.flash_decode(torch.zeros(1, 1, 96, device=cuda_device),
+                               torch.zeros(1, 1, 8, 96, device=cuda_device),
+                               torch.zeros(1, 1, 8, 96, device=cuda_device))
+    flat = torch.zeros(1 + 2 * 64, device=cuda_device)
+    with pytest.raises(ValueError, match="aligned"):
+        fd_kernel.flash_decode(flat[1:65].view(1, 1, 64),
+                               flat[1:].view(1, 1, 2, 64),
+                               flat[1:].view(1, 1, 2, 64))
+    x = torch.ones(8, device=cuda_device)
+    with pytest.raises(ValueError):
+        bs_kernel.black_scholes(x, x, x, x, x.double())
+    with pytest.raises(ValueError):
+        bs_kernel.black_scholes(x, x, x, x, x.cpu())
+    y = torch.ones(8, 2, device=cuda_device)[:, 0]
+    with pytest.raises(ValueError):
+        bs_kernel.black_scholes(y, y, y, y, y)               # strided
+
+
+@task(in_="a", out="c")
+def _record_stream(a, c=None):
+    _record_stream.seen.append(
+        (torch.cuda.current_stream(a.device).cuda_stream,
+         torch.cuda.default_stream(a.device).cuda_stream))
+    return a + 1.0
+
+
+_record_stream.seen = []
+
+
+@pytest.mark.cuda
+def test_cuda_host_workers_launch_on_the_default_stream(cuda_device):
+    _record_stream.seen.clear()
+    with TaskRuntime(RuntimeConfig(executor="host", n_workers=4,
+                                   device="cuda")) as rt:
+        A = rt.zeros((64, 8), (4, 8))
+        C = rt.zeros((64, 8), (4, 8))
+        for i in range(16):
+            _record_stream(A[i, 0], C[i, 0])
+        rt.barrier()
+        assert torch.equal(C.gather(), torch.ones(64, 8, device=cuda_device))
+    assert len(_record_stream.seen) == 16
+    assert all(cur == default for cur, default in _record_stream.seen)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("executor,launches", [("staged", 1), ("host", 16)])
+def test_cuda_black_scholes_app_launches_its_kernel(cuda_device, executor,
+                                                    launches):
+    before = bs_kernel.black_scholes.launches
+    apps.run_app("black_scholes", executor=executor, device="cuda",
+                 app_kwargs=dict(n_options=8192, task_options=512))
+    assert bs_kernel.black_scholes.launches - before == launches
+
+
+@pytest.mark.cuda
+def test_cuda_serve_lm_on_the_host_executor(cuda_device):
+    sizes = dict(s_tile=512, d=128, n_tiles=16, shards=4, requests=12,
+                 budget=3, workers=4)
+    before = fd_kernel.flash_decode.launches
+    r = serve_lm.run(RuntimeConfig(executor="host", device="cuda"), **sizes)
+    assert fd_kernel.flash_decode.launches - before == 12 * 4
+    assert r["rows_verified"] == 12 and r["restore_identical"]
+    st = r["stats"]
+    assert st.admission_peak_bytes <= st.admission_budget_bytes

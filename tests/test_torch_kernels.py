@@ -1,9 +1,12 @@
-"""repro_torch's wave kernels against the JAX package's Pallas kernels.
+"""repro_torch's kernels against the JAX package's Pallas kernels.
 
-On the CPU each batched wrapper runs its plain PyTorch version; those are
-held, task by task, against ``matmul_pallas`` / ``tile_update_pallas`` /
-``jacobi_step_pallas`` run in interpret mode on the same numpy inputs, at
-the reference's tolerances (1e-4 / 1e-4 / 1e-6, ``tests/test_kernels.py``).
+On the CPU each wrapper runs its plain PyTorch version; those are held
+against ``matmul_pallas`` / ``tile_update_pallas`` / ``jacobi_step_pallas``
+(task by task) and ``flash_decode_pallas`` / ``black_scholes_pallas`` run
+in interpret mode on the same numpy inputs, at the reference's
+tolerances (1e-4 / 1e-4 / 1e-6 / 2e-5 / rtol 1e-5 atol 1e-3,
+``tests/test_kernels.py``).  The flash-decode and Black-Scholes
+operators' vmap rules are held against the per-task loop.
 The CUDA kernels themselves are held against these plain versions on the
 card by ``tests/test_torch_cuda.py``.
 """
@@ -13,12 +16,20 @@ import torch
 
 import jax.numpy as jnp
 
+from repro.kernels.black_scholes import ops as ref_bs_ops
 from repro.kernels.cholesky import ops as ref_chol_ops
+from repro.kernels.flash_decode import kernel as ref_fd_kernel
+from repro.kernels.flash_decode import ops as ref_fd_ops
+from repro.kernels.flash_decode import ref as ref_fd_ref
 from repro.kernels.jacobi import kernel as ref_jac_kernel
 from repro.kernels.jacobi import ops as ref_jac_ops
 from repro.kernels.matmul import kernel as ref_mm_kernel
 from repro.kernels.matmul import ops as ref_mm_ops
+from repro_torch.kernels.black_scholes import kernel as bs_kernel
+from repro_torch.kernels.black_scholes import ops as bs_ops
 from repro_torch.kernels.cholesky import ops as chol_ops
+from repro_torch.kernels.flash_decode import kernel as fd_kernel
+from repro_torch.kernels.flash_decode import ops as fd_ops
 from repro_torch.kernels.jacobi import kernel as jac_kernel
 from repro_torch.kernels.jacobi import ops as jac_ops
 from repro_torch.kernels.matmul import kernel as mm_kernel
@@ -148,3 +159,204 @@ def test_wrappers_raise_on_a_device_they_do_not_serve():
         mm_kernel.tile_update_batched(meta, meta, meta)
     with pytest.raises(ValueError):
         jac_kernel.jacobi_halo_batched(meta, idx, idx, (4, 4))
+
+
+# ---------------------------------------------------------------------------
+# flash decode: the plain version (the CPU side of its operator) against
+# flash_decode_pallas in interpret mode, and the decode-sharding contract
+@pytest.mark.parametrize("hq,hkv,s", [(8, 2, 512), (4, 4, 256),
+                                      (16, 8, 1024)])
+def test_flash_decode_plain_matches_pallas(hq, hkv, s):
+    rng = np.random.default_rng(5)
+    b, d = 2, 64
+    q, k, v = _randn(rng, b, hq, d), _randn(rng, b, hkv, s, d), \
+        _randn(rng, b, hkv, s, d)
+    o, lse = fd_ops.decode_partial(*(torch.from_numpy(x) for x in (q, k, v)),
+                                   bk=128)
+    want_o, want_lse = ref_fd_kernel.flash_decode_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), bk=128,
+        interpret=True)
+    assert o.shape == (b, hq, d) and lse.shape == (b, hq)
+    np.testing.assert_allclose(o.numpy(), np.asarray(want_o),
+                               rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse),
+                               rtol=2e-5, atol=2e-5)
+    got = fd_ops.decode_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                                  bk=128)
+    want = ref_fd_ops.decode_attention(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), use_pallas=True,
+                                       interpret=True, bk=128)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("n_shards", [1, 2, 4, 8])
+def test_flash_decode_shard_combine_is_exact(n_shards):
+    """LSE-combining partials over any sequence split equals the full
+    attention of the reference's ``decode_mha``."""
+    rng = np.random.default_rng(6)
+    b, hq, hkv, s, d = 1, 4, 2, 256, 32
+    q, k, v = _randn(rng, b, hq, d), _randn(rng, b, hkv, s, d), \
+        _randn(rng, b, hkv, s, d)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    chunk = s // n_shards
+    parts = [fd_ops.decode_partial(tq, tk[:, :, i * chunk:(i + 1) * chunk],
+                                   tv[:, :, i * chunk:(i + 1) * chunk])
+             for i in range(n_shards)]
+    got = fd_ops.combine_partials(torch.stack([p[0] for p in parts]),
+                                  torch.stack([p[1] for p in parts]))
+    want = ref_fd_ref.decode_mha(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_flash_decode_masked_padding_shard():
+    """A shard that is entirely padding does not perturb the combine, and
+    its partial is the reference's."""
+    rng = np.random.default_rng(7)
+    b, hq, hkv, s, d = 1, 4, 2, 128, 32
+    q, k, v = _randn(rng, b, hq, d), _randn(rng, b, hkv, s, d), \
+        _randn(rng, b, hkv, s, d)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    o1, l1 = fd_ops.decode_partial(tq, tk, tv)
+    o2, l2 = fd_ops.decode_partial(tq, tk, tv,
+                                   mask=torch.zeros((b, s), dtype=bool))
+    got = fd_ops.combine_partials(torch.stack([o1, o2]),
+                                  torch.stack([l1, l2]))
+    want = ref_fd_ref.decode_mha(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=2e-5, atol=2e-5)
+    r2 = ref_fd_ops.decode_partial(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v),
+                                   mask=jnp.zeros((b, s), bool))
+    np.testing.assert_allclose(o2.numpy(), np.asarray(r2[0]),
+                               rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(l2.numpy(), np.asarray(r2[1]), rtol=2e-5)
+
+
+def test_flash_decode_rejects_what_the_reference_rejects():
+    q, k = torch.zeros(1, 2, 32), torch.zeros(1, 1, 96, 32)
+    with pytest.raises(ValueError, match="not divisible"):
+        fd_kernel.flash_decode(q, k, k, bk=64)        # 96 % 64
+    with pytest.raises(ValueError, match="split"):
+        fd_kernel.flash_decode(torch.zeros(1, 3, 32),
+                               torch.zeros(1, 2, 64, 32),
+                               torch.zeros(1, 2, 64, 32))
+    meta = torch.empty(1, 1, 64, 32, device="meta")
+    with pytest.raises(ValueError):
+        fd_kernel.flash_decode(torch.empty(1, 1, 32, device="meta"),
+                               meta, meta)
+
+
+# ---------------------------------------------------------------------------
+# Black-Scholes: the plain version (the CPU side of its operator) against
+# black_scholes_pallas in interpret mode
+def _options(rng, n):
+    return [rng.uniform(10, 200, n).astype(np.float32),
+            rng.uniform(10, 200, n).astype(np.float32),
+            rng.uniform(0.1, 2.0, n).astype(np.float32),
+            np.full(n, 0.03, np.float32),
+            rng.uniform(0.1, 0.6, n).astype(np.float32)]
+
+
+@pytest.mark.parametrize("n", [512, 2048, 1000, 129])
+def test_black_scholes_plain_matches_pallas(n):
+    cols = _options(np.random.default_rng(8), n)
+    call, put = bs_ops.black_scholes(*(torch.from_numpy(c) for c in cols))
+    want_c, want_p = ref_bs_ops.black_scholes(
+        *(jnp.asarray(c) for c in cols), use_pallas=True, interpret=True,
+        block_rows=4)
+    assert call.shape == put.shape == (n,)
+    np.testing.assert_allclose(call.numpy(), np.asarray(want_c),
+                               rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose(put.numpy(), np.asarray(want_p),
+                               rtol=1e-5, atol=1e-3)
+
+
+def test_black_scholes_put_call_parity():
+    rng = np.random.default_rng(9)
+    n = 256
+    spot = torch.from_numpy(rng.uniform(50, 150, n).astype(np.float32))
+    strike = torch.full((n,), 100.0)
+    t = torch.full((n,), 1.0)
+    rate = torch.full((n,), 0.05)
+    vol = torch.full((n,), 0.3)
+    call, put = bs_ops.black_scholes(spot, strike, t, rate, vol)
+    parity = call - put - (spot - strike * torch.exp(-rate * t))
+    np.testing.assert_allclose(parity.numpy(), 0.0, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the operators' vmap rules: one wrapper call per group, equal to the loop
+def _spy(monkeypatch, module, name):
+    calls = []
+    inner = getattr(module, name)
+
+    def spy(*args):
+        calls.append(tuple(args[0].shape))
+        return inner(*args)
+
+    monkeypatch.setattr(module, name, spy)
+    return calls
+
+
+def test_black_scholes_vmap_rule_equals_the_task_loop(monkeypatch):
+    rng = np.random.default_rng(10)
+    tasks = [_options(rng, 64) for _ in range(5)]
+    cols = [torch.from_numpy(np.stack([t[j] for t in tasks]))
+            for j in range(5)]                      # (5 tasks, 64 options)
+    calls = _spy(monkeypatch, bs_kernel, "black_scholes_plain")
+    call, put = torch.func.vmap(bs_ops.black_scholes)(*cols)
+    assert calls == [(5, 64)]                       # one call per group
+    for i in range(5):
+        c, p = bs_ops.black_scholes(*(x[i] for x in cols))
+        assert torch.equal(call[i], c) and torch.equal(put[i], p)
+    # an unbatched operand broadcasts across the task axis
+    call2, _ = torch.func.vmap(bs_ops.black_scholes,
+                               in_dims=(0, 0, 0, None, 0))(
+        cols[0], cols[1], cols[2], cols[3][0], cols[4])
+    for i in range(5):
+        c, _ = bs_ops.black_scholes(cols[0][i], cols[1][i], cols[2][i],
+                                    cols[3][0], cols[4][i])
+        assert torch.equal(call2[i], c)
+
+
+def test_flash_decode_vmap_rule_equals_the_task_loop(monkeypatch):
+    rng = np.random.default_rng(11)
+    q = torch.from_numpy(_randn(rng, 6, 1, 4, 32))           # (T, B, Hq, D)
+    k = torch.from_numpy(_randn(rng, 6, 1, 2, 64, 32))
+    v = torch.from_numpy(_randn(rng, 6, 1, 2, 64, 32))
+    calls = _spy(monkeypatch, fd_kernel, "flash_decode_plain")
+    o, lse = torch.func.vmap(fd_ops.decode_partial)(q, k, v)
+    assert calls == [(6, 4, 32)]                    # task axis folded in B
+    assert o.shape == (6, 1, 4, 32) and lse.shape == (6, 1, 4)
+    for i in range(6):
+        oi, li = fd_ops.decode_partial(q[i], k[i], v[i])
+        torch.testing.assert_close(o[i], oi, rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(lse[i], li, rtol=1e-6, atol=1e-6)
+    # an unbatched query against batched shards
+    o2, _ = torch.func.vmap(fd_ops.decode_partial, in_dims=(None, 0, 0))(
+        q[0], k, v)
+    for i in range(6):
+        torch.testing.assert_close(o2[i], fd_ops.decode_partial(
+            q[0], k[i], v[i])[0], rtol=1e-6, atol=1e-6)
+
+
+def test_new_cpu_wrappers_run_plain_versions_without_counting():
+    rng = np.random.default_rng(12)
+    before = (fd_kernel.flash_decode.launches,
+              bs_kernel.black_scholes.launches)
+    q, k = torch.from_numpy(_randn(rng, 1, 2, 32)), \
+        torch.from_numpy(_randn(rng, 1, 1, 64, 32))
+    o, lse = fd_kernel.flash_decode(q, k, k)
+    wo, wl = fd_kernel.flash_decode_plain(q, k, k, 32 ** -0.5)
+    assert torch.equal(o, wo) and torch.equal(lse, wl)
+    cols = [torch.from_numpy(c) for c in _options(rng, 33)]
+    assert all(torch.equal(a, b) for a, b in zip(
+        bs_kernel.black_scholes(*cols), bs_kernel.black_scholes_plain(*cols)))
+    assert (fd_kernel.flash_decode.launches,
+            bs_kernel.black_scholes.launches) == before
+    with pytest.raises(ValueError, match="one shape"):
+        bs_kernel.black_scholes(*cols[:4], cols[4][:5])

@@ -2,8 +2,8 @@
 
 Tile dtypes, grouping keys, eligibility reasons, firstprivate checks,
 synchronization and stats are held against the JAX package on the same
-numpy inputs; the fault paths (CUDA asked for but absent, executors this
-slice does not port) must raise rather than substitute something else.
+numpy inputs; the fault paths (CUDA asked for but absent, executors the
+port does not run yet) must raise rather than substitute something else.
 """
 import dataclasses
 
@@ -269,21 +269,36 @@ def test_cuda_device_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("overrides,item", [
-    (dict(executor="host"), "item 4"),
+    (dict(executor="host"), None),            # ported: item 4 runs
     (dict(executor="staged", dep_manager="sharded"), "item 6"),
     (dict(executor="sim"), "item 7"),
     (dict(executor="sharded"), "item 9"),
     (dict(executor="staged", sim_cost_fn=lambda td: (0, 0)), "item 7"),
 ])
 def test_unported_executors_raise_not_implemented(overrides, item):
+    if item is None:
+        rt = TaskRuntime(RuntimeConfig(device="cpu", **overrides))
+        try:
+            assert rt.executor_kind == overrides["executor"]
+        finally:
+            rt.shutdown()
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md .*{item}"):
         TaskRuntime(RuntimeConfig(device="cpu", **overrides))
 
 
 def test_default_executor_is_the_references_and_is_not_ported_yet():
+    """The name is historical: the default executor, the reference's
+    "host", is ported now and ``TaskRuntime()`` runs on it."""
     assert RuntimeConfig().executor == repro.RuntimeConfig().executor
-    with pytest.raises(NotImplementedError, match="host"):
-        TaskRuntime(device="cpu")
+    with TaskRuntime(device="cpu") as rt:
+        A = rt.full((8, 8), (4, 4), 1.0)
+        C = rt.zeros((8, 8), (4, 4))
+        fut = _scale(C[1, 0], A[0, 1], 3.0)
+        assert torch.equal(fut.result(), torch.full((4, 4), 3.0))
+    assert rt.executor_kind == "host"
+    assert rt.stats().worker_tasks is not None
+    assert not any(w.is_alive() for w in rt._exec.workers)
 
 
 def test_registered_kernel_errors_are_not_swallowed():
