@@ -20,9 +20,16 @@ Phases, each of which must pass (any failure exits non-zero):
    (``o`` and ``lse``) at the serve path's per-task shape and at
    Mistral-NeMo-12B's decode width, rtol 1e-5 / atol 1e-3 for
    Black-Scholes at the §4.2 app's 2,097,152 options plus put-call
-   parity at 1e-4.  ``bound_ms`` is the least time the card could take:
-   the bytes the function must move over 3.35 TB/s or its FP32
-   operations over 67 TFLOP/s (H100 SXM data sheet), the larger.
+   parity at 1e-4, and for flash attention 2e-5 in f32 and 2e-2 in bf16
+   (``tests/test_kernels.py``) at the reference tests' shapes, the
+   prefill continuation, the rows that see no key, group 6 and head dims
+   32, 64 and 128, then at the prefill path's shape (Mistral-NeMo-12B's
+   GQA width, B 4 x 1,024 tokens, bf16, causal), which is timed, as is
+   B 1 x 8,192 tokens.  ``bound_ms`` is the least time the card could
+   take: the bytes the function must move over 3.35 TB/s or its
+   operations over the peak for their type, 67 TFLOP/s FP32 or 989
+   TFLOP/s bf16 on the tensor cores (H100 SXM data sheet), the larger.
+   Flash attention counts 4 D operations per visible (query, key) pair.
 4. Apps (main path 1): the five apps at the §4.2 sizes through
    ``TaskRuntime(executor="staged", kernel_backend="pallas",
    device="cuda")``; each verifies its own result against a plain
@@ -37,7 +44,20 @@ Phases, each of which must pass (any failure exits non-zero):
    Prints req/s and p50/p99 request latency (host-side completion: a
    task completes when its body has queued its kernels) and the
    device's idle share in the serving window of a second, profiled run.
-6. Parity: at a small size, ``executor="sequential"`` against staged with
+6. LLM (main path 3): ``repro_torch.launch.serve.generate`` with
+   Mistral-NeMo-12B at full width, cut to 8 of its 40 layers, weights
+   drawn from a seed: B 4 prompts of 1,024 tokens, prefill through the
+   flash-attention kernel, 32 greedy decode steps.  The counter is zeroed
+   just before and read just after; one launch per layer.  Checks: the
+   tokens' shape and range, finite logits, and at full width in f32 (2
+   layers) the kernel's prefill logits against the plain ``chunked``
+   path within 1e-3 and the decode step against the full forward
+   (teacher forcing) within 2e-3; in bf16 the same two differences
+   against a tolerance stated with its reason.  Prints prefill ms, decode
+   ms per step, tokens/s as the reference's ``main`` counts them, peak
+   device memory and the device's idle share over a second, profiled
+   ``generate``.
+7. Parity: at a small size, ``executor="sequential"`` against staged with
    the wave kernels and against host, all five apps, within each app's
    tolerance.
 
@@ -55,6 +75,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, data sheet
 FP32_FLOPS_PER_S = 67e12           # H100 SXM, FP32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12          # H100 SXM, dense bf16 on the tensor cores
 L2_FLUSH_BYTES = 256 << 20         # > the 50 MB L2
 
 
@@ -84,9 +105,10 @@ def time_ms(fn, flush, reps: int = 25) -> float:
     return ms[len(ms) // 2]
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float,
+          flops_per_s: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -105,6 +127,7 @@ def kernel_phase(dev) -> list[dict]:
     import torch.nn.functional as F
     from repro_torch import serve_lm
     from repro_torch.kernels.black_scholes import kernel as bs
+    from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.flash_decode import kernel as fd
     from repro_torch.kernels.jacobi import kernel as jac
     from repro_torch.kernels.matmul import kernel as mm
@@ -160,9 +183,9 @@ def kernel_phase(dev) -> list[dict]:
             j0, j1 = max(j - 1, 0), min(j + 2, g)
             groups.setdefault(((i1 - i0) * tile, (j1 - j0) * tile),
                               []).append(((i - i0) * tile, (j - j0) * tile))
-    jac_cases = {}
+    jac_cases, halos = {}, {}
     for (h, w), offsets in sorted(groups.items()):
-        halo = randn(len(offsets), h, w)
+        halo = halos[(h, w)] = randn(len(offsets), h, w)
         r0 = torch.tensor([o[0] for o in offsets], dtype=torch.int64,
                           device=dev)
         c0 = torch.tensor([o[1] for o in offsets], dtype=torch.int64,
@@ -178,9 +201,21 @@ def kernel_phase(dev) -> list[dict]:
     # each interior tile reads its (tile+2)^2 window once
     nbytes = 4 * (n * (tile + 2) ** 2 + n * tile * tile) + 8 * 2 * n
     flops = 4 * n * tile * tile
+    # one PyTorch call computes the interior group's function: a 3x3
+    # five-point convolution over the (tile+2)^2 windows, which all sit at
+    # offset (tile, tile) in this group (TF32 off, set in main)
+    edge = slice(tile - 1, 2 * tile + 1)
+    win = halos[(1536, 1536)][:, None, edge, edge]
+    five = torch.tensor([[0.0, 0.25, 0.0], [0.25, 0.0, 0.25],
+                         [0.0, 0.25, 0.0]], device=dev)[None, None]
+    conv_err = (F.conv2d(win, five)[:, 0] - wrapper()).abs().max().item()
+    print(f"[kernel] jacobi_halo_batched conv2d yardstick: "
+          f"max_abs_err={conv_err} atol=1e-6", flush=True)
+    check(conv_err <= 1e-6, f"conv2d yardstick off the kernel by {conv_err}")
     rows.append(dict(
         name="jacobi_halo_batched", wrapper=wrapper, plain=plain,
-        library=None, rtol=1e-6, atol=1e-6, checks=list(jac_cases.values()),
+        library=lambda: F.conv2d(win, five), rtol=1e-6, atol=1e-6,
+        checks=list(jac_cases.values()),
         source="src/repro_torch/csrc/jacobi.cu",
         replaces="src/repro/kernels/jacobi/kernel.py:41",
         shape=shape, bound=bound(nbytes, flops)))
@@ -224,6 +259,52 @@ def kernel_phase(dev) -> list[dict]:
         replaces="src/repro/kernels/black_scholes/kernel.py:38",
         shape=f"{n} options", bound=bound(7 * 4 * n, 60 * n)))
 
+    # flash attention: the prefill path's shape (Mistral-NeMo-12B's GQA
+    # width, B 4 x 1,024 tokens, bf16, causal) is the row's time; B 1 x
+    # 8,192 tokens is timed too, in "wide".  SDPA aligns is_causal to the
+    # top left, so it is the same function only where Sq == Skv.
+    def fa_case(b, hq, hkv, sq, skv, d, dtype, causal=True, bq=256, bk=256):
+        q = randn(b, hq, sq, d).to(dtype)
+        kk = randn(b, hkv, skv, d).to(dtype)
+        vv = randn(b, hkv, skv, d).to(dtype)
+        kv_off = skv - sq
+        pairs = b * hq * (sum(min(skv, max(0, i + kv_off + 1))
+                              for i in range(sq)) if causal else sq * skv)
+        nbytes = q.element_size() * (2 * q.numel() + kk.numel() + vv.numel())
+        peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 \
+            else FP32_FLOPS_PER_S
+        kw = dict(causal=causal, bq=bq, bk=bk)
+        tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+        return dict(
+            shape=f"{str(dtype)[6:]} q({b},{hq},{sq},{d}) "
+                  f"kv({b},{hkv},{skv},{d}) causal={causal} bq={bq} bk={bk}",
+            wrapper=lambda: fa.flash_attention(q, kk, vv, **kw),
+            plain=lambda: fa.flash_attention_plain(q, kk, vv, **kw),
+            library=lambda: F.scaled_dot_product_attention(
+                q, kk, vv, is_causal=causal, enable_gqa=True),
+            bound=bound(nbytes, 4 * d * pairs, peak), tol=tol)
+
+    fa_checks = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for hq, hkv in ((4, 4), (8, 2)):
+            for causal in (True, False):
+                fa_checks.append(fa_case(2, hq, hkv, 128, 128, 64, dtype,
+                                         causal))
+    fa_checks += [fa_case(1, 2, 2, 32, 128, 64, torch.float32),
+                  fa_case(1, 2, 2, 64, 48, 32, torch.float32, bq=32, bk=16),
+                  fa_case(1, 2, 2, 64, 48, 32, torch.float32, bq=16, bk=16),
+                  fa_case(2, 12, 2, 64, 64, 32, torch.float32),
+                  fa_case(2, 32, 8, 256, 256, 128, torch.float32)]
+    prefill_case = fa_case(4, 32, 8, 1024, 1024, 128, torch.bfloat16)
+    rows.append(dict(
+        name="flash_attention", rtol=2e-2, atol=2e-2,
+        checks=[(c["shape"], c["wrapper"], c["plain"], c["tol"], c["tol"])
+                for c in fa_checks + [prefill_case]],
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:81",
+        wide=fa_case(1, 32, 8, 8192, 8192, 128, torch.bfloat16),
+        **prefill_case))
+
     results = []
     for row in rows:
         checks = row.get("checks") or [(row["shape"], row["wrapper"],
@@ -232,22 +313,23 @@ def kernel_phase(dev) -> list[dict]:
             w = row["wide"]
             checks.append((w["shape"], w["wrapper"], w["plain"]))
         err = 0.0
-        for shape, wrapper, plain in checks:
-            got = _as_tuple(wrapper())
-            want = _as_tuple(plain())
+        for shape, wrapper, plain, *tol in checks:
+            rtol, atol = tol or (row["rtol"], row["atol"])
+            got = [x.float() for x in _as_tuple(wrapper())]
+            want = [x.float() for x in _as_tuple(plain())]
             torch.cuda.synchronize()
             case_err = max((x - y).abs().max().item()
                            for x, y in zip(got, want))
-            ok = all(bool(torch.allclose(x, y, rtol=row["rtol"],
-                                         atol=row["atol"])) and
+            ok = all(bool(torch.allclose(x, y, rtol=rtol, atol=atol)) and
                      bool(torch.isfinite(x).all().item())
                      for x, y in zip(got, want))
             print(f"[kernel] {row['name']} {shape}: max_abs_err={case_err} "
-                  f"rtol={row['rtol']} atol={row['atol']} "
-                  f"{'ok' if ok else 'FAIL'}", flush=True)
+                  f"rtol={rtol} atol={atol} {'ok' if ok else 'FAIL'}",
+                  flush=True)
             check(ok, f"{row['name']} {shape} disagrees with its plain "
                       f"version (max_abs_err {case_err}, tolerance "
-                      f"{row['rtol']}/{row['atol']})")
+                      f"{rtol}/{atol})")
+            del got, want
             err = max(err, case_err)
         ms = time_ms(row["wrapper"], flush)
         plain_ms = time_ms(row["plain"], flush)
@@ -431,6 +513,165 @@ def serve_phase(dev) -> int:
     return launches
 
 
+LLM_ARCH = "mistral-nemo-12b"
+LLM_LAYERS = 8
+LLM_REDUCED = {"n_layers": "40 -> 8 (f32 masters + bf16 compute copy of 40 "
+                           "layers ≈ 72 GB)"}
+LLM_BATCH, LLM_PROMPT, LLM_NEW = 4, 1024, 32
+# bf16 compute: the kernel path against the chunked path, and the decode
+# step against the full forward, may differ by a fraction of the logits'
+# spread.  bf16 keeps 8 significant bits; the paths round at other places
+# (a one-row decode GEMM against a 1,025-row forward GEMM, attention
+# outputs rounded once per path) and every layer adds its rounding to the
+# residual stream.  Measured on the CPU at 8 layers of d_model 512, the
+# teacher-forcing gap was 2.7% of the logits' std; a quarter of the std
+# keeps a ninefold margin and still catches a wrong cache position or
+# mask, which moves the logits by about their std.
+BF16_LOGIT_TOL = 0.25          # times the std of the prefill logits
+
+
+def llm_diffs(cfg, params, tokens) -> tuple[float, float, float]:
+    """Max |difference| of (the kernel path's prefill last-token logits
+    against the plain ``chunked`` path's; the decode step at position S
+    after the kernel's prefill against the full forward over S + 1
+    tokens, teacher forcing), and the std of the prefill logits.  The
+    full forward runs the chunked path: S + 1 = 1,025 tokens do not split
+    into the kernel's 256-token blocks (the reference raises there too)."""
+    import dataclasses
+    import torch
+    from repro_torch.models import api
+    chunked = dataclasses.replace(cfg, attn_impl="chunked")
+    s = tokens.shape[1]
+    with torch.inference_mode():
+        p = api.prepare(params, cfg)
+        got, caches = api.prefill_step(p, cfg, {"tokens": tokens})
+        want, _ = api.prefill_step(p, chunked, {"tokens": tokens})
+        d_impl = (got.float() - want.float()).abs().max().item()
+        std = got.float().std().item()
+        nxt = got[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        dec, _ = api.decode_step(p, cfg, nxt, api.pad_caches(caches, s + 8),
+                                 s)
+        full = api.forward_logits(p, chunked,
+                                  {"tokens": torch.cat([tokens, nxt], 1)})
+        d_tf = (dec[:, 0].float() - full[:, s].float()).abs().max().item()
+    return d_impl, d_tf, std
+
+
+def llm_phase(dev, card: str) -> int:
+    """Main path 3: ``launch.serve.generate`` with Mistral-NeMo-12B at full
+    width (8 layers), prefill through the flash-attention kernel."""
+    import dataclasses
+    import statistics
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+
+    cfg = dataclasses.replace(get_config(LLM_ARCH), n_layers=LLM_LAYERS,
+                              attn_impl="pallas")
+    print(f"[llm] reduced: {json.dumps(LLM_REDUCED, ensure_ascii=False)}",
+          flush=True)
+    params = api.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                             device=dev)
+    n_params = api.count_params(params)
+    tokens = torch.randint(
+        0, cfg.vocab_size, (LLM_BATCH, LLM_PROMPT), dtype=torch.int32,
+        generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    batch = {"tokens": tokens}
+    max_len = LLM_PROMPT + LLM_NEW + 8          # the reference main's rule
+    serve.generate(cfg, params, batch, max_new_tokens=1, max_len=max_len)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    out = serve.generate(cfg, params, batch, max_new_tokens=LLM_NEW,
+                         max_len=max_len)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fa.flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == cfg.n_layers,
+          f"llm: {launches} flash_attention launches, expected "
+          f"{cfg.n_layers}")
+    check(tuple(out.shape) == (LLM_BATCH, LLM_NEW) and
+          int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size,
+          f"llm: tokens {tuple(out.shape)} out of shape or range")
+
+    # the same steps one by one, synchronized: prefill ms, decode ms a
+    # step, finite logits, the same tokens
+    prefill, decode = serve.build_serve_fns(cfg)
+    finite, steps, toks = True, [], []
+    with torch.inference_mode():
+        p = api.prepare(params, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = prefill(p, batch)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        caches = api.pad_caches(caches, max_len)
+        for i in range(LLM_NEW):
+            finite &= bool(torch.isfinite(logits).all().item())
+            tok = torch.clamp(torch.argmax(logits[:, -1], -1)[:, None],
+                              max=cfg.vocab_size - 1).to(torch.int32)
+            toks.append(tok)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = decode(p, tok, caches, LLM_PROMPT + i)
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0) * 1e3)
+        finite &= bool(torch.isfinite(logits).all().item())
+        del p, caches, logits
+    check(finite, "llm: a logit is not finite")
+    check(torch.equal(torch.cat(toks, 1), out),
+          "llm: step-by-step tokens differ from generate's")
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function("llm/generate"):
+            serve.generate(cfg, params, batch, max_new_tokens=LLM_NEW,
+                           max_len=max_len)
+            torch.cuda.synchronize()
+    idle, busy_ms, window_s = _idle_share(prof, "llm/generate")
+    top = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                  for e in prof.key_averages()
+                  if e.self_device_time_total > 0),
+                 key=lambda t: -t[1])[:8]
+
+    bf16_impl, bf16_tf, bf16_std = llm_diffs(cfg, params, tokens)
+    tol = BF16_LOGIT_TOL * bf16_std
+    del params
+    cfg32 = dataclasses.replace(cfg, n_layers=2, compute_dtype="float32")
+    params32 = api.init_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg32, device=dev)
+    f32_impl, f32_tf, f32_std = llm_diffs(cfg32, params32, tokens)
+    del params32
+    print("[llm] " + json.dumps(dict(
+        card=card, arch=LLM_ARCH, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        heads=[cfg.n_heads, cfg.n_kv_heads, cfg.head_dim], d_ff=cfg.d_ff,
+        vocab=cfg.vocab_size, compute_dtype=cfg.compute_dtype,
+        batch=LLM_BATCH, prompt=LLM_PROMPT, new_tokens=LLM_NEW,
+        max_len=max_len, params=n_params,
+        wall_s=wall, tok_per_s=out.numel() / wall, prefill_ms=prefill_ms,
+        decode_ms_per_step=statistics.median(steps),
+        decode_ms_min=min(steps), decode_ms_max=max(steps),
+        peak_memory_bytes=peak, flash_attention_launches=launches,
+        profiled_window_s=window_s, device_busy_ms=busy_ms, idle_share=idle,
+        top_device_ms=[[name[:60], ms, n] for name, ms, n in top],
+        f32_pallas_vs_chunked=f32_impl, f32_teacher_forcing=f32_tf,
+        f32_logits_std=f32_std, bf16_pallas_vs_chunked=bf16_impl,
+        bf16_teacher_forcing=bf16_tf, bf16_logits_std=bf16_std,
+        bf16_tol=tol)), flush=True)
+    check(f32_impl <= 1e-3, f"llm f32: pallas vs chunked {f32_impl} > 1e-3")
+    check(f32_tf <= 2e-3, f"llm f32: teacher forcing {f32_tf} > 2e-3")
+    check(bf16_impl <= tol,
+          f"llm bf16: pallas vs chunked {bf16_impl} > {tol}")
+    check(bf16_tf <= tol, f"llm bf16: teacher forcing {bf16_tf} > {tol}")
+    return launches
+
+
 PARITY_SIZES = {
     "black_scholes": dict(n_options=8192, task_options=512),
     "matmul": dict(n=256, tile=64),
@@ -505,6 +746,7 @@ def main() -> int:
     kernels = kernel_phase(dev)
     launches = app_phase(dev)
     launches["flash_decode"] = serve_phase(dev)
+    launches["flash_attention"] = llm_phase(dev, card)
     for row in kernels:
         row["launches"] = launches[row["name"]]
     parity_phase(dev)

@@ -7,9 +7,14 @@ wave kernels written by hand in CUDA C++ for Hopper (``csrc/``)::
 
     from repro_torch import RuntimeConfig, TaskRuntime, task
 
-and serving loops::
+serving loops::
 
     from repro_torch.serve import ServeConfig, Session
+
+and a dense LLM server (prefill through the hand-written flash-attention
+kernel, then greedy decode)::
+
+    from repro_torch.launch.serve import generate
 
 This package imports neither JAX nor ``repro``; ``repro`` stays the
 reference the tests hold it against.

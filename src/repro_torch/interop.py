@@ -2,10 +2,12 @@
 
 Both packages hand state over as plain data, so neither imports the
 other: tiles as ``{tile index: numpy array}`` (what
-``np.asarray(ba.get_tile(idx))`` reads from a ``repro`` ``BlockArray``)
-and configuration as a dict of ``RuntimeConfig`` fields
-(``dataclasses.asdict`` of a ``repro`` config).  The parity tests build
-both runtimes' inputs through these functions.
+``np.asarray(ba.get_tile(idx))`` reads from a ``repro`` ``BlockArray``),
+configuration as a dict of ``RuntimeConfig`` fields
+(``dataclasses.asdict`` of a ``repro`` config), and model weights as the
+reference's parameter pytree of numpy arrays
+(``jax.tree_util.tree_map(np.asarray, params)``).  The parity tests build
+both packages' inputs through these functions.
 """
 from __future__ import annotations
 
@@ -18,8 +20,10 @@ import torch
 
 from .core.api import RuntimeConfig
 from .core.blocks import BlockArray
+from .models.transformer import Decoder, tree, tree_map
 
-__all__ = ["blockarray_from_numpy", "tiles_to_numpy", "config_from_reference"]
+__all__ = ["blockarray_from_numpy", "tiles_to_numpy", "config_from_reference",
+           "params_from_reference", "params_to_numpy"]
 
 
 def blockarray_from_numpy(tiles: Mapping[tuple, np.ndarray],
@@ -78,3 +82,48 @@ def config_from_reference(fields: Mapping[str, object]) -> RuntimeConfig:
                              "None only")
         out[name] = value
     return RuntimeConfig(**out).validate()
+
+
+# ---------------------------------------------------------------------------
+def _flatten(tree: Mapping, prefix: str = "") -> dict[str, object]:
+    out = {}
+    for key, value in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(value, Mapping):
+            out.update(_flatten(value, name + "."))
+        else:
+            out[name] = value
+    return out
+
+
+def params_from_reference(tree: Mapping, cfg,
+                          device: torch.device | str = "cuda") -> Decoder:
+    """The port's ``Decoder`` for ``cfg`` on ``device`` holding the
+    reference's parameters, given as its pytree of nested dicts of numpy
+    arrays.  Loads leaf by leaf under the pytree path joined by dots
+    (``blocks.attn.wq.w``); raises on a missing, extra or misshapen
+    leaf."""
+    decoder = Decoder(cfg, device=device)
+    want = decoder.state_dict()
+    got = _flatten(tree)
+    missing = sorted(set(want) - set(got))
+    extra = sorted(set(got) - set(want))
+    if missing or extra:
+        raise ValueError(f"parameter tree does not match {cfg.name}: "
+                         f"missing {missing}, extra {extra}")
+    for name, value in got.items():
+        arr = np.asarray(value)
+        if tuple(arr.shape) != tuple(want[name].shape):
+            raise ValueError(f"{name}: shape {tuple(arr.shape)}, "
+                             f"{cfg.name} needs {tuple(want[name].shape)}")
+    with torch.no_grad():
+        for name, param in decoder.named_parameters():
+            param.copy_(torch.from_numpy(np.array(got[name],
+                                                  dtype=np.float32)))
+    return decoder
+
+
+def params_to_numpy(decoder: Decoder) -> dict:
+    """The reference's parameter pytree (nested dicts of numpy arrays) of
+    a port ``Decoder`` — the form :func:`params_from_reference` takes."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree(decoder))

@@ -1,0 +1,209 @@
+"""Architecture assembly for the dense decoder-only family (the JAX
+package's ``models/transformer.py``).
+
+The block parameters are stacked on a leading layer axis, as the
+reference's ``_stack_init`` stacks them, and the reference's ``lax.scan``
+over that axis is a Python loop over layer indices.  The other families
+(``moe``, ``vlm``, ``hybrid``, ``ssm``, ``audio``) raise
+``NotImplementedError`` naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+from torch import nn
+
+from . import attention as attn_mod
+from .layers import FFN, Embedding, Linear, Norm, draw, embed, ffn, norm
+
+_NOT_PORTED = {
+    "moe": "ROADMAP queue 1 item 12 (the MoE family and its MLA attention)",
+    "vlm": "ROADMAP queue 1 item 12 (the VLM family)",
+    "hybrid": "ROADMAP queue 1 item 12 (the hybrid Mamba2 family)",
+    "ssm": "ROADMAP queue 1 item 12 (the xLSTM family)",
+    "audio": "ROADMAP queue 1 item 12 (the encoder-decoder family)",
+}
+
+
+def require_dense(cfg) -> None:
+    """Raise ``NotImplementedError`` for a family the port lacks."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is not ported yet; see "
+            f"{_NOT_PORTED.get(cfg.family, 'ROADMAP queue 1 item 12')}")
+
+
+def _cdtype(cfg) -> torch.dtype:
+    return getattr(torch, cfg.compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# the standard pre-norm attention block
+class Block(nn.Module):
+    """``init_block`` for the dense family: ln1, attn, ln2 (absent for a
+    parallel block), ffn; stacked on a leading axis of ``layers``."""
+
+    def __init__(self, cfg, *, layers: int | None = None, device=None):
+        super().__init__()
+        kw = dict(layers=layers, device=device)
+        self.ln1 = Norm(cfg.d_model, cfg.norm, **kw)
+        self.attn = attn_mod.Attention(cfg, **kw)
+        if not cfg.parallel_block:
+            self.ln2 = Norm(cfg.d_model, cfg.norm, **kw)
+        self.ffn = FFN(cfg.d_model, cfg.d_ff, cfg.act, **kw)
+
+
+def init_block(generator, cfg, *, moe_layer: bool = False,
+               layers: int | None = None, device=None) -> Block:
+    if moe_layer or cfg.mla:
+        raise NotImplementedError(
+            f"MoE and MLA blocks are not ported yet; see {_NOT_PORTED['moe']}")
+    return draw(Block(cfg, layers=layers, device=device), generator)
+
+
+def block_apply(p, x, cfg, positions, *, moe_layer: bool = False,
+                mode: str = "train", cache=None, pos=None):
+    """Returns (x, new_cache)."""
+    if moe_layer:
+        raise NotImplementedError(
+            f"MoE blocks are not ported yet; see {_NOT_PORTED['moe']}")
+
+    def mix(h):
+        if mode == "train":
+            return attn_mod.attention_train(p["attn"], h, cfg, positions), \
+                None
+        if mode == "prefill":
+            return attn_mod.attention_prefill(p["attn"], h, cfg, positions)
+        return attn_mod.attention_decode(p["attn"], h, cfg, cache, pos)
+
+    if cfg.parallel_block:                 # command-r style
+        h = norm(p["ln1"], x, cfg.norm, cfg.norm_eps)
+        a, new_cache = mix(h)
+        return x + a + ffn(p["ffn"], h, cfg.act), new_cache
+    h = norm(p["ln1"], x, cfg.norm, cfg.norm_eps)
+    a, new_cache = mix(h)
+    x = x + a
+    h = norm(p["ln2"], x, cfg.norm, cfg.norm_eps)
+    return x + ffn(p["ffn"], h, cfg.act), new_cache
+
+
+# ---------------------------------------------------------------------------
+# segments: (kind, count) derived from the config
+def segments(cfg) -> list[tuple[str, int]]:
+    if cfg.family in ("dense", "vlm"):
+        return [("block", cfg.n_layers)]
+    if cfg.family == "moe":
+        segs = []
+        if cfg.first_dense:
+            segs.append(("dense_block", cfg.first_dense))
+        segs.append(("moe_block", cfg.n_layers - cfg.first_dense))
+        return segs
+    if cfg.family == "hybrid":          # zamba2
+        return [("zamba", cfg.n_layers)]
+    if cfg.family == "ssm":             # xlstm
+        return [("xlstm", cfg.n_layers)]
+    if cfg.family == "audio":
+        return [("whisper", cfg.n_layers)]
+    raise ValueError(cfg.family)
+
+
+# ---------------------------------------------------------------------------
+class Decoder(nn.Module):
+    """The parameter tree of ``init_decoder`` for the dense family:
+    ``embed``, ``final_norm``, ``lm_head`` (absent when the embeddings are
+    tied) and ``blocks``, stacked over ``n_layers``.  Its ``state_dict``
+    keys are the reference's pytree paths joined by dots."""
+
+    def __init__(self, cfg, *, device=None):
+        super().__init__()
+        require_dense(cfg)
+        self.embed = Embedding(cfg.padded_vocab, cfg.d_model, device=device)
+        self.final_norm = Norm(cfg.d_model, cfg.norm, device=device)
+        if not cfg.tie_embeddings:
+            self.lm_head = Linear(cfg.d_model, cfg.padded_vocab,
+                                  device=device)
+        self.blocks = Block(cfg, layers=cfg.n_layers, device=device)
+
+
+def init_decoder(generator, cfg, *, device=None) -> Decoder:
+    """A ``Decoder`` with weights drawn from ``generator`` (on ``device``,
+    the generator's device by default)."""
+    return draw(Decoder(cfg, device=device or generator.device), generator)
+
+
+def tree(module: nn.Module) -> dict[str, Any]:
+    """The module's tensors as nested dicts keyed by the reference's
+    pytree path components."""
+    out: dict[str, Any] = {}
+    for name, t in module.named_parameters():
+        *path, leaf = name.split(".")
+        node = out
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = t
+    return out
+
+
+def tree_map(fn, t):
+    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in t.items()}
+
+
+def _positions(tokens_shape, offset=0, device=None):
+    _, s = tokens_shape
+    return torch.arange(s, dtype=torch.int32, device=device)[None, :] + \
+        offset
+
+
+# ---------------------------------------------------------------------------
+def _embed_tokens(p, cfg, tokens):
+    x = embed(p["embed"], tokens,
+              scale=cfg.d_model ** 0.5 if cfg.embed_scale else None)
+    return x.to(_cdtype(cfg))
+
+
+def forward(p, cfg, tokens, *, mode: str = "train", caches=None, pos=None):
+    """Unified entry over a parameter tree already cast for compute
+    (``api.prepare``).  Returns (hidden, caches):
+
+    * train:   hidden (B, S, d), caches None
+    * prefill: hidden (B, S, d), fresh caches
+    * decode:  hidden (B, 1, d), caches updated in place  (pos: int index)
+    """
+    require_dense(cfg)
+    x = _embed_tokens(p, cfg, tokens)
+    positions = _positions(tokens.shape, device=tokens.device) \
+        if mode != "decode" else None
+    x, caches = _run_attn_stack(p["blocks"], x, cfg, positions, mode, caches,
+                                pos, moe_layer=False)
+    x = norm(p["final_norm"], x, cfg.norm, cfg.norm_eps)
+    return x, caches
+
+
+def _layer(stacked, i: int):
+    return tree_map(lambda a: a[i], stacked)
+
+
+def _run_attn_stack(stacked, x, cfg, positions, mode, caches, pos, *,
+                    moe_layer: bool):
+    n = stacked["ln1"]["scale"].shape[0]
+    if mode == "train":
+        for i in range(n):
+            x, _ = block_apply(_layer(stacked, i), x, cfg, positions,
+                               moe_layer=moe_layer, mode="train")
+        return x, None
+    if mode == "prefill":
+        ks, vs = [], []
+        for i in range(n):
+            x, c = block_apply(_layer(stacked, i), x, cfg, positions,
+                               moe_layer=moe_layer, mode="prefill")
+            ks.append(c["k"])
+            vs.append(c["v"])
+        return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
+    for i in range(n):
+        x, _ = block_apply(_layer(stacked, i), x, cfg, None,
+                           moe_layer=moe_layer, mode="decode",
+                           cache={"k": caches["k"][i], "v": caches["v"][i]},
+                           pos=pos)
+    return x, caches

@@ -10,19 +10,25 @@ toolkit::
 Each kernel is held against its plain PyTorch version on the same
 tensors on the card, at the reference's tolerances (1e-4 for the GEMM
 and the tile update, 1e-6 for the halo stencil, 2e-5 for flash decode,
-rtol 1e-5 / atol 1e-3 for Black-Scholes); the app tests drive the wave
-backend end to end and check that the registered kernels launched, and
-the serving tests drive the host executor on the card.
+rtol 1e-5 / atol 1e-3 for Black-Scholes, 2e-5 in f32 and 2e-2 in bf16
+for flash attention); the app tests drive the wave backend end to end
+and check that the registered kernels launched, the serving tests drive
+the host executor on the card, and the LLM test counts one
+flash-attention launch per layer in one ``generate``.
 """
 import pytest
 import torch
 
-from repro_torch import RuntimeConfig, TaskRuntime, apps, serve_lm, task
+from repro_torch import (RuntimeConfig, TaskRuntime, apps, configs,
+                         serve_lm, task)
 from repro_torch.kernels import _build
 from repro_torch.kernels.black_scholes import kernel as bs_kernel
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_decode import kernel as fd_kernel
 from repro_torch.kernels.jacobi import kernel as jac_kernel
 from repro_torch.kernels.matmul import kernel as mm_kernel
+from repro_torch.launch import serve as llm_serve
+from repro_torch.models import api
 
 
 @pytest.fixture
@@ -245,3 +251,77 @@ def test_cuda_serve_lm_on_the_host_executor(cuda_device):
     assert r["rows_verified"] == 12 and r["restore_identical"]
     st = r["stats"]
     assert st.admission_peak_bytes <= st.admission_budget_bytes
+
+
+# ---------------------------------------------------------------------------
+# flash attention and the served dense LLM path
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,bq,bk", [
+    (2, 4, 4, 128, 128, 64, True, 256, 256),
+    (2, 8, 2, 128, 128, 64, True, 256, 256),
+    (2, 8, 2, 128, 128, 64, False, 256, 256),
+    (1, 2, 2, 32, 128, 64, True, 256, 256),     # prefill continuation
+    (1, 2, 2, 64, 48, 32, True, 32, 16),        # rows seeing no key
+    (1, 2, 2, 64, 48, 32, True, 16, 16),
+    (2, 12, 2, 64, 64, 32, True, 256, 256),     # group 6
+    (2, 32, 8, 256, 256, 128, True, 256, 256),
+])
+def test_cuda_flash_attention_matches_plain(cuda_device, dtype, b, hq, hkv,
+                                            sq, skv, d, causal, bq, bk):
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    q, k, v = (torch.randn(s, generator=g, device=cuda_device).to(dtype)
+               for s in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+    before = fa_kernel.flash_attention.launches
+    got = fa_kernel.flash_attention(q, k, v, causal=causal, bq=bq, bk=bk)
+    torch.cuda.synchronize()
+    assert fa_kernel.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(
+        got.float(), fa_kernel.flash_attention_plain(
+            q, k, v, causal=causal, bq=bq, bk=bk).float(),
+        rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_refuses_grad_and_mixed_devices(cuda_device):
+    x = torch.zeros(1, 2, 16, 32, device=cuda_device, requires_grad=True)
+    y = torch.zeros(1, 2, 16, 32, device=cuda_device)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa_kernel.flash_attention(x, y, y)
+    with pytest.raises(ValueError, match="mixed"):
+        fa_kernel.flash_attention(y, y.cpu(), y)
+    with pytest.raises(ValueError, match="dtype|float16|expected"):
+        fa_kernel.flash_attention(y.half(), y.half(), y.half())
+    with pytest.raises(ValueError, match="head dim"):
+        z = torch.zeros(1, 2, 16, 48, device=cuda_device)
+        fa_kernel.flash_attention(z, z, z)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = torch.zeros(1, 16, 2, 32, device=cuda_device).transpose(1, 2)
+        fa_kernel.flash_attention(t, t, t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_cuda_generate_launches_once_per_layer(cuda_device, compute_dtype):
+    """One ``generate`` at a reduced config: prefill launches the kernel
+    once per layer and decode never; the tokens equal the CPU run's in
+    f32 on the same weights."""
+    cfg = configs.get_config("mistral-nemo-12b").reduced(
+        attn_impl="pallas", compute_dtype=compute_dtype)
+    params = api.init_params(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(1))
+    kw = dict(max_new_tokens=4, max_len=64 + 4 + 8)
+    on_cpu = llm_serve.generate(cfg, params, {"tokens": tokens}, **kw)
+    params = params.to(cuda_device)
+    fa_kernel.flash_attention.launches = 0
+    out = llm_serve.generate(cfg, params, {"tokens": tokens.to(cuda_device)},
+                             **kw)
+    torch.cuda.synchronize()
+    assert fa_kernel.flash_attention.launches == cfg.n_layers
+    assert tuple(out.shape) == (2, 4) and out.device.type == "cuda"
+    if compute_dtype == "float32":
+        assert torch.equal(out.cpu(), on_cpu)

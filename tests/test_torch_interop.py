@@ -106,13 +106,20 @@ def test_port_imports_with_jax_and_repro_unimportable():
         "    sys.modules[name] = None\n"
         "import repro_torch, repro_torch.apps, repro_torch.interop\n"
         "import repro_torch.kernels._build\n"
+        "import repro_torch.configs, repro_torch.models\n"
+        "import repro_torch.kernels.flash_attention.ops\n"
+        "from repro_torch.launch import serve\n"
         "rt = repro_torch.TaskRuntime(executor='staged', device='cpu',\n"
         "                             kernel_backend='pallas')\n"
         "repro_torch.apps.matmul_app(rt, n=32, tile=16)\n"
-        "print(rt.stats().kernel_dispatches)\n")
+        "print(rt.stats().kernel_dispatches)\n"
+        "serve.main(['--arch', 'mistral-nemo-12b', '--reduced',\n"
+        "            '--device', 'cpu', '--max-new-tokens', '2'])\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
                          env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["2"]
+    lines = out.stdout.splitlines()
+    assert lines[0] == "2"
+    assert lines[1].startswith("generated (4, 2) tokens")

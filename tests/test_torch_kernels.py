@@ -6,7 +6,10 @@ against ``matmul_pallas`` / ``tile_update_pallas`` / ``jacobi_step_pallas``
 in interpret mode on the same numpy inputs, at the reference's
 tolerances (1e-4 / 1e-4 / 1e-6 / 2e-5 / rtol 1e-5 atol 1e-3,
 ``tests/test_kernels.py``).  The flash-decode and Black-Scholes
-operators' vmap rules are held against the per-task loop.
+operators' vmap rules are held against the per-task loop.  The flash
+attention plain version and the port's ``attention`` ops are held against
+``flash_attention_pallas`` in interpret mode, ``chunked_attention`` and
+the ``mha`` oracle against the reference's.
 The CUDA kernels themselves are held against these plain versions on the
 card by ``tests/test_torch_cuda.py``.
 """
@@ -18,6 +21,9 @@ import jax.numpy as jnp
 
 from repro.kernels.black_scholes import ops as ref_bs_ops
 from repro.kernels.cholesky import ops as ref_chol_ops
+from repro.kernels.flash_attention import kernel as ref_fa_kernel
+from repro.kernels.flash_attention import ops as ref_fa_ops
+from repro.kernels.flash_attention import ref as ref_fa_ref
 from repro.kernels.flash_decode import kernel as ref_fd_kernel
 from repro.kernels.flash_decode import ops as ref_fd_ops
 from repro.kernels.flash_decode import ref as ref_fd_ref
@@ -28,6 +34,9 @@ from repro.kernels.matmul import ops as ref_mm_ops
 from repro_torch.kernels.black_scholes import kernel as bs_kernel
 from repro_torch.kernels.black_scholes import ops as bs_ops
 from repro_torch.kernels.cholesky import ops as chol_ops
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.flash_decode import kernel as fd_kernel
 from repro_torch.kernels.flash_decode import ops as fd_ops
 from repro_torch.kernels.jacobi import kernel as jac_kernel
@@ -360,3 +369,134 @@ def test_new_cpu_wrappers_run_plain_versions_without_counting():
             bs_kernel.black_scholes.launches) == before
     with pytest.raises(ValueError, match="one shape"):
         bs_kernel.black_scholes(*cols[:4], cols[4][:5])
+
+
+# ---------------------------------------------------------------------------
+# flash attention: the plain version (what the wrapper runs on the CPU) and
+# the port's attention ops against flash_attention_pallas in interpret mode
+def _qkv(rng, b, hq, hkv, sq, skv, d, dtype=np.float32):
+    """The same rounded inputs for both packages: numpy f32 drawn from the
+    seed, cast to ``dtype`` (round to nearest even in both)."""
+    xs = (_randn(rng, b, hq, sq, d), _randn(rng, b, hkv, skv, d),
+          _randn(rng, b, hkv, skv, d))
+    if dtype == np.float32:
+        return xs, tuple(torch.from_numpy(x) for x in xs)
+    return (tuple(jnp.asarray(x, jnp.bfloat16) for x in xs),
+            tuple(torch.from_numpy(x).to(torch.bfloat16) for x in xs))
+
+
+def _pallas(q, k, v, **kw):
+    return np.asarray(ref_fa_kernel.flash_attention_pallas(
+        *(jnp.asarray(x) for x in (q, k, v)), interpret=True, **kw),
+        np.float32)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_matches_pallas(causal, hq, hkv, dtype):
+    """The reference's grid (``tests/test_kernels.py`` TestFlashAttention):
+    B 2, S 128, D 64 at 2e-5 in f32 and 2e-2 in bf16."""
+    rng = np.random.default_rng(13)
+    dt = np.float32 if dtype == "float32" else jnp.bfloat16
+    (jq, jk, jv), (tq, tk, tv) = _qkv(rng, 2, hq, hkv, 128, 128, 64, dt)
+    want = _pallas(jq, jk, jv, causal=causal)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    got = fa_kernel.flash_attention(tq, tk, tv, causal=causal)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    via_ops = fa_ops.attention(tq, tk, tv, causal=causal, impl="pallas")
+    for x in (got, via_ops):
+        np.testing.assert_allclose(x.float().numpy(), want, rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.parametrize("sq,skv,hq,hkv,bq,bk,tol", [
+    (32, 128, 2, 2, 256, 256, 2e-5),   # prefill continuation, Sq < Skv
+    (64, 48, 2, 2, 32, 16, 1e-6),      # rows seeing no key: V's mean
+    (64, 48, 2, 2, 16, 16, 1e-6),      # ... or 0 where the block ran none
+    (64, 64, 12, 2, 32, 32, 2e-5),     # group 6 (Nemotron-4-15B's ratio)
+])
+def test_flash_attention_plain_matches_pallas_corners(sq, skv, hq, hkv, bq,
+                                                      bk, tol):
+    rng = np.random.default_rng(14)
+    (jq, jk, jv), (tq, tk, tv) = _qkv(rng, 1, hq, hkv, sq, skv, 32)
+    want = _pallas(jq, jk, jv, causal=True, bq=bq, bk=bk)
+    got = fa_kernel.flash_attention(tq, tk, tv, causal=True, bq=bq, bk=bk)
+    np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol)
+    if sq > skv:
+        # the rows that see no key are what the reference kernel makes
+        # of them, not the oracle's NaN
+        assert np.isnan(np.asarray(ref_fa_ref.mha(jq, jk, jv))).any()
+        assert not np.isnan(got.numpy()).any()
+
+
+def test_flash_attention_rejects_what_the_reference_rejects():
+    rng = np.random.default_rng(15)
+    (jq, jk, jv), (tq, tk, tv) = _qkv(rng, 1, 2, 2, 96, 96, 32)
+    with pytest.raises(ValueError, match="not divisible"):
+        ref_fa_kernel.flash_attention_pallas(jq, jk, jv, bq=64,
+                                             interpret=True)
+    with pytest.raises(ValueError, match="not divisible"):
+        fa_kernel.flash_attention(tq, tk, tv, bq=64)
+    with pytest.raises(ValueError, match="not divisible"):
+        fa_kernel.flash_attention_plain(tq, tk, tv, bk=64)
+    with pytest.raises(ValueError, match="split"):
+        fa_kernel.flash_attention(torch.zeros(1, 3, 8, 32),
+                                  torch.zeros(1, 2, 8, 32),
+                                  torch.zeros(1, 2, 8, 32))
+    with pytest.raises(ValueError, match="unknown"):
+        fa_ops.attention(tq, tk, tv, impl="flash")
+
+
+def test_flash_attention_wrapper_refuses_grad_and_other_devices():
+    """No backward, as the TPU kernel has none; no silent fallback from a
+    device the kernel does not serve; no count for the plain version."""
+    x = torch.zeros(1, 2, 16, 32, requires_grad=True)
+    y = torch.zeros(1, 2, 16, 32)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa_kernel.flash_attention(x, y, y)
+    with torch.no_grad():
+        assert fa_kernel.flash_attention(x, y, y).shape == x.shape
+    meta = torch.empty(1, 2, 16, 32, device="meta")
+    with pytest.raises(ValueError, match="devices"):
+        fa_kernel.flash_attention(meta, meta, meta)
+    before = fa_kernel.flash_attention.launches
+    assert torch.equal(fa_kernel.flash_attention(y, y, y),
+                       fa_kernel.flash_attention_plain(y, y, y))
+    assert fa_kernel.flash_attention.launches == before
+
+
+@pytest.mark.parametrize("sq,skv,q_chunk,k_chunk,causal", [
+    (128, 128, 32, 64, True),
+    (64, 128, 32, 32, True),           # Sq < Skv
+    (48, 48, 32, 32, True),            # odd lengths: one-chunk fallback
+    (128, 128, 64, 32, False),
+    (64, 48, 32, 16, True),            # rows seeing no key: V's mean
+])
+def test_chunked_attention_matches_reference(sq, skv, q_chunk, k_chunk,
+                                             causal):
+    rng = np.random.default_rng(16)
+    (jq, jk, jv), (tq, tk, tv) = _qkv(rng, 2, 4, 2, sq, skv, 32)
+    want = np.asarray(ref_fa_ops.chunked_attention(
+        jq, jk, jv, causal=causal, q_chunk=q_chunk, k_chunk=k_chunk))
+    got = fa_ops.chunked_attention(tq, tk, tv, causal=causal,
+                                   q_chunk=q_chunk, k_chunk=k_chunk)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+    via_ops = fa_ops.attention(tq, tk, tv, causal=causal, impl="chunked",
+                               q_chunk=q_chunk, k_chunk=k_chunk)
+    assert torch.equal(via_ops, got)
+
+
+@pytest.mark.parametrize("sq,skv,causal", [(64, 64, True), (32, 64, True),
+                                           (64, 64, False), (64, 48, True)])
+def test_mha_oracle_matches_reference(sq, skv, causal):
+    rng = np.random.default_rng(17)
+    (jq, jk, jv), (tq, tk, tv) = _qkv(rng, 1, 8, 2, sq, skv, 32)
+    want = np.asarray(ref_fa_ref.mha(jq, jk, jv, causal=causal))
+    got = fa_ref.mha(tq, tk, tv, causal=causal).numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    ok = ~np.isnan(want)
+    np.testing.assert_allclose(got[ok], want[ok], rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(
+        fa_ops.attention(tq, tk, tv, causal=causal, impl="naive").numpy()[ok],
+        want[ok], rtol=2e-5, atol=2e-5)
