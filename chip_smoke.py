@@ -9,7 +9,11 @@ Phases, each of which must pass (any failure exits non-zero):
 
 1. Card: print ``nvidia-smi --query-gpu=name,power.limit``.
 2. Build: compile every hand-written CUDA kernel from ``src/repro_torch/
-   csrc`` (one ``nvcc`` per source, all started together).
+   csrc`` (one ``nvcc`` per source, all started together), then count in
+   the machine code (``cuobjdump --dump-sass``) the instructions that
+   show the tensor-core kernels: ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA
+   loads) in the bf16 flash-attention kernel, tf32 ``HMMA`` in the tile
+   update; printed on a ``[sass]`` line, each must be above 0.
 3. Kernels: at the shapes the main paths give them, hold each kernel
    against its plain PyTorch version on the card and time the kernel,
    the plain version and, where one PyTorch call computes the same
@@ -21,9 +25,10 @@ Phases, each of which must pass (any failure exits non-zero):
    Mistral-NeMo-12B's decode width, rtol 1e-5 / atol 1e-3 for
    Black-Scholes at the §4.2 app's 2,097,152 options plus put-call
    parity at 1e-4, and for flash attention 2e-5 in f32 and 2e-2 in bf16
-   (``tests/test_kernels.py``) at the reference tests' shapes, the
-   prefill continuation, the rows that see no key, group 6 and head dims
-   32, 64 and 128, then at the prefill path's shape (Mistral-NeMo-12B's
+   (``tests/test_kernels.py``) at the reference tests' shapes and, in
+   both dtypes, the prefill continuation, the rows that see no key, group
+   6, ragged Sq and Skv and head dims 32, 64 and 128, then at the prefill
+   path's shape (Mistral-NeMo-12B's
    GQA width, B 4 x 1,024 tokens, bf16, causal), which is timed, as is
    B 1 x 8,192 tokens.  ``bound_ms`` is the least time the card could
    take: the bytes the function must move over 3.35 TB/s or its
@@ -290,11 +295,15 @@ def kernel_phase(dev) -> list[dict]:
             for causal in (True, False):
                 fa_checks.append(fa_case(2, hq, hkv, 128, 128, 64, dtype,
                                          causal))
-    fa_checks += [fa_case(1, 2, 2, 32, 128, 64, torch.float32),
-                  fa_case(1, 2, 2, 64, 48, 32, torch.float32, bq=32, bk=16),
-                  fa_case(1, 2, 2, 64, 48, 32, torch.float32, bq=16, bk=16),
-                  fa_case(2, 12, 2, 64, 64, 32, torch.float32),
-                  fa_case(2, 32, 8, 256, 256, 128, torch.float32)]
+    # the corners in both dtypes: bf16 runs the wgmma kernel, f32 the FFMA
+    for dtype in (torch.float32, torch.bfloat16):
+        fa_checks += [fa_case(1, 2, 2, 32, 128, 64, dtype),
+                      fa_case(1, 2, 2, 64, 48, 32, dtype, bq=32, bk=16),
+                      fa_case(1, 2, 2, 64, 48, 32, dtype, bq=16, bk=16),
+                      fa_case(1, 2, 2, 96, 40, 128, dtype, bq=16, bk=8),
+                      fa_case(2, 12, 2, 64, 64, 32, dtype),
+                      fa_case(1, 4, 2, 100, 164, 128, dtype),
+                      fa_case(2, 32, 8, 256, 256, 128, dtype)]
     prefill_case = fa_case(4, 32, 8, 1024, 1024, 128, torch.bfloat16)
     rows.append(dict(
         name="flash_attention", rtol=2e-2, atol=2e-2,
@@ -320,12 +329,15 @@ def kernel_phase(dev) -> list[dict]:
             torch.cuda.synchronize()
             case_err = max((x - y).abs().max().item()
                            for x, y in zip(got, want))
+            # the worst element's share of its allowance (allclose: 1.0)
+            share = max(((x - y).abs() / (atol + rtol * y.abs())).max().item()
+                        for x, y in zip(got, want))
             ok = all(bool(torch.allclose(x, y, rtol=rtol, atol=atol)) and
                      bool(torch.isfinite(x).all().item())
                      for x, y in zip(got, want))
             print(f"[kernel] {row['name']} {shape}: max_abs_err={case_err} "
-                  f"rtol={rtol} atol={atol} {'ok' if ok else 'FAIL'}",
-                  flush=True)
+                  f"tolerance_share={share} rtol={rtol} atol={atol} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
             check(ok, f"{row['name']} {shape} disagrees with its plain "
                       f"version (max_abs_err {case_err}, tolerance "
                       f"{rtol}/{atol})")
@@ -742,6 +754,13 @@ def main() -> int:
     libs = _build.build_all()
     print(f"[build] {sorted(libs)} in {time.perf_counter() - t0:.2f} s",
           flush=True)
+    sass = {f"{source}:{function}": _build.sass_counts(source, function,
+                                                       patterns)
+            for source, (function, patterns) in
+            sorted(_build.TENSOR_CORE_SASS.items())}
+    print(f"[sass] {json.dumps(sass)}", flush=True)
+    check(all(n > 0 for counts in sass.values() for n in counts.values()),
+          f"a tensor-core kernel lacks its instructions: {sass}")
 
     kernels = kernel_phase(dev)
     launches = app_phase(dev)

@@ -8,12 +8,17 @@ compiles in seconds with ``nvcc`` alone — no PyTorch headers:
          -Xcompiler -fPIC -Xptxas -v -o build/repro_torch/<name>-<hash>.so
 
 The library lands in ``build/repro_torch/`` at the repository root (listed
-in ``.gitignore``), named by a hash of its source, so an edited source
-rebuilds and an unchanged one loads the library already built.  The
+in ``.gitignore``), named by a hash of its source, of every shared header
+``csrc/*.cuh`` and of the flags, so an edited source or header rebuilds
+and an unchanged one loads the library already built.  Nothing links
+``libcuda``: the TMA kernels reach its ``cuTensorMapEncodeTiled``
+through ``cudaGetDriverEntryPoint`` (``csrc/hopper.cuh``).  The
 compiler's report (registers, shared memory, spills) is kept beside it as
 ``<name>-<hash>.log``.  Nothing builds at import: the first CUDA launch
 of a kernel builds it, or :func:`build_all` builds every source at once,
 one ``nvcc`` process per source, all started together.
+:func:`sass_counts` counts instructions in a built library's machine code
+(``cuobjdump --dump-sass``), to show which units a kernel uses.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -28,13 +34,25 @@ import threading
 import torch
 
 __all__ = ["SOURCES", "CSRC", "BUILD_DIR", "nvcc_path", "build_all", "load",
-           "check", "require", "stream_handle"]
+           "check", "require", "stream_handle", "sass_counts",
+           "TENSOR_CORE_SASS"]
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch"
 SOURCES = ("matmul", "jacobi", "flash_decode", "black_scholes",
            "flash_attention")
+
+# the kernels that must run on the tensor cores, by source: the function
+# (a part of its mangled name) and the SASS lines that show it, for
+# sass_counts -- wgmma (HGMMA) fed by TMA (UTMALDG) in the bf16 flash
+# attention, tf32 tensor-core products in the tile update
+TENSOR_CORE_SASS = {
+    "flash_attention": ("flash_attention_bf16_kernel",
+                        {"HGMMA": r"\bHGMMA\.", "UTMALDG": r"\bUTMALDG\b"}),
+    "matmul": ("tile_update_3xtf32_kernel",
+               {"HMMA.TF32": r"\bHG?MMA\.\S*TF32"}),
+}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -53,11 +71,14 @@ def nvcc_path() -> str | None:
     return str(cand) if cand.is_file() else None
 
 
-def _target(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() +
-                            " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+def _target(name: str, csrc: pathlib.Path = CSRC) -> pathlib.Path:
+    """The library of ``csrc/<name>.cu``, named by a digest of the source,
+    every shared header ``csrc/*.cuh`` and the flags."""
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str) -> tuple[pathlib.Path, subprocess.Popen] | None:
@@ -120,8 +141,16 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+# status codes of the C entries besides cudaError_t (csrc/hopper.cuh)
+_ENTRY_ERRORS = {-1: "libcuda has no cuTensorMapEncodeTiled",
+                 -2: "a TMA tensor map did not encode"}
+
+
 def check(rc: int, what: str) -> None:
-    """Raise if a C entry reported a CUDA error (its ``cudaGetLastError``)."""
+    """Raise if a C entry reported an error: a CUDA error (its
+    ``cudaGetLastError``) or a tensor map it could not make."""
+    if rc in _ENTRY_ERRORS:
+        raise RuntimeError(f"{what}: {_ENTRY_ERRORS[rc]}")
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
 
@@ -150,3 +179,37 @@ def stream_handle(device: torch.device) -> int:
     """PyTorch's current stream on ``device``, as the ``void*`` a C entry
     takes."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _cuobjdump() -> str:
+    nvcc = nvcc_path()
+    found = shutil.which("cuobjdump") or (
+        str(pathlib.Path(nvcc).with_name("cuobjdump")) if nvcc else None)
+    if not found or not pathlib.Path(found).is_file():
+        raise RuntimeError("cuobjdump not found beside nvcc")
+    return found
+
+
+def sass_counts(name: str, function: str,
+                patterns: dict[str, str]) -> dict[str, int]:
+    """Instructions of the kernels in ``csrc/<name>.cu``'s library whose
+    mangled name contains ``function``: for each key of ``patterns``, the
+    number of SASS lines its regular expression matches (built first if
+    needed).  Raises if no kernel's name matches."""
+    path = build_all((name,))[name]
+    dump = subprocess.run([_cuobjdump(), "--dump-sass", str(path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts = dict.fromkeys(patterns, 0)
+    matched, inside = False, False
+    for line in dump.splitlines():
+        head = re.match(r"\s*Function\s*:\s*(\S+)", line)
+        if head:
+            inside = function in head.group(1)
+            matched |= inside
+        elif inside:
+            for key, pat in patterns.items():
+                counts[key] += bool(re.search(pat, line))
+    if not matched:
+        raise RuntimeError(f"no kernel named *{function}* in {path.name}")
+    return counts

@@ -8,26 +8,33 @@ head h reads KV head h // (Hq / Hkv)), the causal mask aligned to the KV
 end (``kv_offset = Skv - Sq``) and max, sum and accumulator in f32
 (``csrc/flash_attention.cu``).
 
-Bound on an H100: operations at the prefill shapes — 4 D flops per
-visible (query, key) pair against the tensor cores' 989 TFLOP/s for bf16
-operands (67 TFLOP/s FP32 for f32 ones).  The TPU kernel carries its
-online-softmax state across a sequential grid axis over key blocks; on
-Hopper one block owns a (batch, KV head, query tile) with all G query
-heads of that KV head, loops over key tiles staged through shared
-memory as f32, and skips the tiles no row of the block reaches.  Known
-gap: FP32 FFMA products, no tensor cores (``wgmma``, TMA and bf16
-``mma`` are the redesign's).
+Bound on an H100 (SXM, 700 W): operations at the prefill shapes — 4 D
+flops per visible (query, key) pair against the tensor cores' 989
+TFLOP/s for bf16 operands (67 TFLOP/s FP32 for f32 ones).  The TPU
+kernel carries its online-softmax state across a sequential grid axis
+over key blocks; on Hopper one block owns a (batch, KV head, query tile)
+with all G query heads of that KV head, loops over the key tiles and
+skips those no row of the block reaches.  The kernel is chosen by dtype,
+with no fallback between them:
+
+* bf16 — ``bddt_flash_attention_bf16``: K and V tiles stream through a
+  two-stage shared-memory ring by TMA, both products are ``wgmma`` on the
+  tensor cores (P rounded to bf16 for P.V), the softmax runs on the
+  accumulator fragments.
+* f32 — ``bddt_flash_attention_f32``: FP32 FFMA products on tiles staged
+  by the threads; TF32 would miss the f32 tolerance of 2e-5.
 
 The TPU kernel skips whole (query block, key block) pairs, so a query
 row that sees no key (causal, Sq > Skv) averages V over the key blocks
 its query block ran, or gives 0 when its block ran none.  The caller's
-``bq``/``bk`` decide only that; the kernel tiles as it likes.
+``bq``/``bk`` decide only that; the kernels tile as they like.
 
 The wrapper runs the plain version (:func:`flash_attention_plain`) for
-tensors on the CPU and launches the kernel for tensors on a CUDA device,
-and counts the launches in ``flash_attention.launches``.  Neither has a
-backward, as the TPU kernel has none: an input that requires grad while
-grad mode is on is refused.
+tensors on the CPU and launches a kernel for tensors on a CUDA device; it
+counts the launches in ``flash_attention.launches`` and, by kernel, in
+``flash_attention.launches_by_kernel``.  Neither has a backward, as the
+TPU kernel has none: an input that requires grad while grad mode is on
+is refused.
 """
 import ctypes
 import functools
@@ -40,17 +47,20 @@ __all__ = ["flash_attention", "flash_attention_plain", "SUPPORTED_HEAD_DIMS"]
 
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
 _NEG_INF = -1e30            # the TPU kernel's finite mask value
-_DTYPES = (torch.float32, torch.bfloat16)
+# the kernel (its name in ``launches_by_kernel``) and C entry of each dtype
+KERNELS = {torch.bfloat16: ("bf16_wgmma", "bddt_flash_attention_bf16"),
+           torch.float32: ("f32_ffma", "bddt_flash_attention_f32")}
 
 
 @functools.cache
 def _lib():
-    """The built library, its entry's C signature set once."""
+    """The built library, its entries' C signatures set once."""
     lib = _build.load("flash_attention")
-    lib.bddt_flash_attention.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 +
-        [ctypes.c_float, ctypes.c_void_p])
-    lib.bddt_flash_attention.restype = ctypes.c_int
+    for _, entry in KERNELS.values():
+        fn = getattr(lib, entry)
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 +
+                       [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -125,7 +135,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D) -> (B, Hq, Sq, D) in q's
     dtype.  The plain version on the CPU, one kernel launch on CUDA
     (bf16 or f32, one dtype, contiguous, 16-byte aligned, D in
-    :data:`SUPPORTED_HEAD_DIMS`).  ``min(bq, Sq)`` and ``min(bk, Skv)``
+    :data:`SUPPORTED_HEAD_DIMS`): the ``wgmma`` kernel for bf16, the FFMA
+    kernel for f32 (:data:`KERNELS`).  ``min(bq, Sq)`` and ``min(bk, Skv)``
     must divide Sq and Skv, the TPU kernel's block contract."""
     _check(q, k, v)
     b, hq, sq, d = q.shape
@@ -139,7 +150,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if kinds != {"cuda"}:
         raise ValueError(f"operands on mixed or unsupported devices: "
                          f"{sorted(str(x.device) for x in (q, k, v))}")
-    if q.dtype not in _DTYPES:
+    if q.dtype not in KERNELS:
         raise ValueError(f"expected bfloat16 or float32, got {q.dtype}")
     _build.require(q, "q", (b, hq, sq, d), dtype=q.dtype)
     _build.require(k, "k", (b, hkv, skv, d), dtype=q.dtype, device=q.device)
@@ -149,14 +160,17 @@ def flash_attention(q, k, v, *, causal: bool = True,
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.data_ptr() % 16:
             raise ValueError(f"{name}: expected a 16-byte aligned tensor")
+    kernel, entry = KERNELS[q.dtype]
     o = torch.empty_like(q)
-    rc = _lib().bddt_flash_attention(
+    rc = getattr(_lib(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, hq, hkv,
-        sq, skv, d, int(causal), bq, bk, int(q.dtype == torch.bfloat16),
-        scale, _build.stream_handle(q.device))
-    _build.check(rc, "flash_attention")
+        sq, skv, d, int(causal), bq, bk, scale,
+        _build.stream_handle(q.device))
+    _build.check(rc, f"flash_attention ({kernel})")
     flash_attention.launches += 1
+    flash_attention.launches_by_kernel[kernel] += 1
     return o
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_kernel = {name: 0 for name, _ in KERNELS.values()}

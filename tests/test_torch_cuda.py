@@ -11,10 +11,12 @@ Each kernel is held against its plain PyTorch version on the same
 tensors on the card, at the reference's tolerances (1e-4 for the GEMM
 and the tile update, 1e-6 for the halo stencil, 2e-5 for flash decode,
 rtol 1e-5 / atol 1e-3 for Black-Scholes, 2e-5 in f32 and 2e-2 in bf16
-for flash attention); the app tests drive the wave backend end to end
-and check that the registered kernels launched, the serving tests drive
-the host executor on the card, and the LLM test counts one
-flash-attention launch per layer in one ``generate``.
+for flash attention), and the machine code of the tensor-core kernels
+is read for their ``HGMMA``, ``UTMALDG`` and tf32 ``HMMA`` instructions;
+the app tests drive the wave backend end to end and check that the
+registered kernels launched, the serving tests drive the host executor
+on the card, and the LLM test counts one flash-attention launch per layer
+in one ``generate``.
 """
 import pytest
 import torch
@@ -58,7 +60,8 @@ def test_cuda_matmul_matches_plain(cuda_device, n, m, k, nn):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,m,k,nn", [(120, 128, 128, 128), (5, 33, 70, 65)])
+@pytest.mark.parametrize("n,m,k,nn", [(120, 128, 128, 128), (5, 33, 70, 65),
+                                      (2, 130, 200, 96), (3, 64, 36, 250)])
 def test_cuda_tile_update_matches_plain(cuda_device, n, m, k, nn):
     g = torch.Generator(device=cuda_device).manual_seed(1)
     c, a, b = (torch.randn(s, generator=g, device=cuda_device)
@@ -266,6 +269,11 @@ def test_cuda_serve_lm_on_the_host_executor(cuda_device):
     (1, 2, 2, 64, 48, 32, True, 16, 16),
     (2, 12, 2, 64, 64, 32, True, 256, 256),     # group 6
     (2, 32, 8, 256, 256, 128, True, 256, 256),
+    (1, 4, 2, 100, 164, 128, True, 256, 256),   # ragged Sq and Skv
+    (1, 2, 2, 96, 40, 64, True, 32, 8),         # rows seeing no key, D 64
+    (1, 2, 2, 96, 40, 128, True, 16, 8),        # ... and D 128
+    (1, 6, 1, 50, 70, 128, True, 256, 256),     # group 6, ragged
+    (2, 3, 3, 130, 130, 32, False, 256, 256),   # full, ragged, D 32
 ])
 def test_cuda_flash_attention_matches_plain(cuda_device, dtype, b, hq, hkv,
                                             sq, skv, d, causal, bq, bk):
@@ -282,6 +290,32 @@ def test_cuda_flash_attention_matches_plain(cuda_device, dtype, b, hq, hkv,
         got.float(), fa_kernel.flash_attention_plain(
             q, k, v, causal=causal, bq=bq, bk=bk).float(),
         rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,kernel", [(torch.bfloat16, "bf16_wgmma"),
+                                          (torch.float32, "f32_ffma")])
+def test_cuda_flash_attention_dispatches_by_dtype(cuda_device, dtype,
+                                                  kernel):
+    """A bf16 call runs the wgmma kernel and never the FFMA one; f32 the
+    reverse."""
+    x = torch.randn(1, 4, 64, 64, device=cuda_device).to(dtype)
+    before = dict(fa_kernel.flash_attention.launches_by_kernel)
+    fa_kernel.flash_attention(x, x, x)
+    torch.cuda.synchronize()
+    after = fa_kernel.flash_attention.launches_by_kernel
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == kernel) for k in after}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", sorted(_build.TENSOR_CORE_SASS))
+def test_cuda_kernels_use_the_tensor_cores(cuda_device, source):
+    """The built machine code: wgmma (HGMMA) fed by TMA (UTMALDG) in the
+    bf16 flash-attention kernel, tf32 tensor-core products in the tile
+    update."""
+    counts = _build.sass_counts(source, *_build.TENSOR_CORE_SASS[source])
+    assert all(n > 0 for n in counts.values()), counts
 
 
 @pytest.mark.cuda
