@@ -12,8 +12,10 @@ Phases, each of which must pass (any failure exits non-zero):
    csrc`` (one ``nvcc`` per source, all started together), then count in
    the machine code (``cuobjdump --dump-sass``) the instructions that
    show the tensor-core kernels: ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA
-   loads) in the bf16 flash-attention kernel, tf32 ``HMMA`` in the tile
-   update; printed on a ``[sass]`` line, each must be above 0.
+   loads) in the bf16 flash-attention kernel, tf32 ``HMMA`` in the GEMM
+   and the tile update; printed on a ``[sass]`` line, each must be above
+   0.  ``[ptxas]`` lines give the registers, spills and shared memory of
+   the GEMM and flash-decode kernels.
 3. Kernels: at the shapes the main paths give them, hold each kernel
    against its plain PyTorch version on the card and time the kernel,
    the plain version and, where one PyTorch call computes the same
@@ -22,8 +24,9 @@ Phases, each of which must pass (any failure exits non-zero):
    tile update, 1e-6 for the halo stencil at all four of the Jacobi app's
    halo shapes (corner, both edges, interior), 2e-5 for flash decode
    (``o`` and ``lse``) at the serve path's per-task shape and at
-   Mistral-NeMo-12B's decode width, rtol 1e-5 / atol 1e-3 for
-   Black-Scholes at the §4.2 app's 2,097,152 options plus put-call
+   Mistral-NeMo-12B's decode width (each call profiled once: one kernel
+   launch; its cluster size and block count printed), rtol 1e-5 / atol
+   1e-3 for Black-Scholes at the §4.2 app's 2,097,152 options plus put-call
    parity at 1e-4, and for flash attention 2e-5 in f32 and 2e-2 in bf16
    (``tests/test_kernels.py``) at the reference tests' shapes and, in
    both dtypes, the prefill continuation, the rows that see no key, group
@@ -124,6 +127,21 @@ def check(ok: bool, what: str) -> None:
 
 def _as_tuple(x) -> tuple:
     return x if isinstance(x, tuple) else (x,)
+
+
+def device_kernels(fn) -> list[str]:
+    """The device kernels one call of ``fn`` launches, by name, from a
+    profiled call after a warm-up."""
+    import torch
+    from torch.autograd import DeviceType
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
 def kernel_phase(dev) -> list[dict]:
@@ -246,6 +264,23 @@ def kernel_phase(dev) -> list[dict]:
     sizes = serve_lm.CHIP_SIZES
     serve_case = fd_case(1, 1, 1, sizes["s_tile"], sizes["d"])
     wide_case = fd_case(4, 32, 8, 32768, 128)
+    for b_, hq, hkv, s_, d in ((1, 1, 1, sizes["s_tile"], sizes["d"]),
+                               (4, 32, 8, 32768, 128)):
+        cs, keys = fd.split(s_)
+        smem, resident = fd.occupancy(hq // hkv, d)
+        print(f"[kernel] flash_decode split q({b_},{hq},{d}) "
+              f"kv({b_},{hkv},{s_},{d}): cluster={cs} keys_per_block={keys} "
+              f"blocks={cs * hkv * b_} blocks_with_keys="
+              f"{-(-s_ // keys) * hkv * b_} smem_bytes={smem} "
+              f"clusters={hkv * b_} resident_clusters={resident}",
+              flush=True)
+    for case in (serve_case, wide_case):
+        names = device_kernels(case["wrapper"])
+        ours = [x for x in names if "flash_decode" in x]
+        print(f"[kernel] flash_decode {case['shape']}: device kernels of "
+              f"one call {names}", flush=True)
+        check(len(ours) == 1, f"flash_decode {case['shape']}: "
+                              f"{len(ours)} kernel launches in one call")
     rows.append(dict(
         name="flash_decode", rtol=2e-5, atol=2e-5,
         source="src/repro_torch/csrc/flash_decode.cu",
@@ -388,6 +423,23 @@ def parity_of_black_scholes(dev, gen) -> None:
     print(f"[kernel] black_scholes put-call parity: max_abs={worst} "
           f"atol=1e-4 {'ok' if worst <= 1e-4 else 'FAIL'}", flush=True)
     check(worst <= 1e-4, f"black_scholes put-call parity off by {worst}")
+
+
+def ptxas_phase() -> None:
+    """Registers, spills and static shared memory of the GEMM and
+    flash-decode kernels from the compiler's report, and the dynamic shared
+    memory a flash-decode block asks for."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_decode import kernel as fd
+    dynamic = {f"G={g} D={d}": fd.occupancy(g, d)[0]
+               for g, d in ((1, 128), (4, 128), (8, 128), (8, 64))}
+    print(f"[ptxas] flash_decode_split_kernel dynamic_smem_bytes="
+          f"{json.dumps(dynamic)}", flush=True)
+    for source, function in (("matmul", "tile_gemm_3xtf32_kernel"),
+                             ("flash_decode", "flash_decode_split_kernel")):
+        for kernel, info in sorted(_build.ptxas_report(source,
+                                                       function).items()):
+            print(f"[ptxas] {kernel}: {json.dumps(info)}", flush=True)
 
 
 def app_phase(dev) -> dict[str, int]:
@@ -756,11 +808,12 @@ def main() -> int:
           flush=True)
     sass = {f"{source}:{function}": _build.sass_counts(source, function,
                                                        patterns)
-            for source, (function, patterns) in
-            sorted(_build.TENSOR_CORE_SASS.items())}
+            for source, kernels in sorted(_build.TENSOR_CORE_SASS.items())
+            for function, patterns in kernels.items()}
     print(f"[sass] {json.dumps(sass)}", flush=True)
     check(all(n > 0 for counts in sass.values() for n in counts.values()),
           f"a tensor-core kernel lacks its instructions: {sass}")
+    ptxas_phase()
 
     kernels = kernel_phase(dev)
     launches = app_phase(dev)

@@ -14,33 +14,82 @@
 // Bound on an H100: memory.  K and V stream past once (2 B Hkv S D 4
 // bytes) against 4 flops per element, far below the ridge.  The TPU
 // kernel carries the running max, sum and accumulator across a
-// sequential grid axis; Hopper has none, so one block owns one (b, KV
-// head) and its NW warps take interleaved chunks of U tokens, each warp
-// keeping its own running max, sum and accumulator for the G query heads
-// in registers (lane l holds elements [l*DPL, (l+1)*DPL) of D, loaded as
-// one DPL-float vector: a warp reads a row of K or V as one contiguous
-// run).  A warp loads its U rows of K and V before it computes, to keep
-// loads in flight.  At the end the warps' partials merge through shared
-// memory by the rule of ref.combine_partials, written on unnormalised
-// sums: M = max_w m_w, L = sum_w l_w e^(m_w - M),
-// o = sum_w acc_w e^(m_w - M) / L, lse = M + log L.  expf/logf, not the
-// __ intrinsics.
+// sequential grid axis; Hopper has none, and one block per (b, KV head)
+// leaves most of the card idle (4 x 8 blocks on 132 SMs at
+// Mistral-NeMo-12B's decode width).  So S is split across a thread-block
+// cluster:
 //
-// Known gap: B * Hkv blocks only.  At Mistral-NeMo-12B's decode width
-// (B 4, Hkv 8) that is 32 blocks on 132 SMs; a split over S with a
-// second combine pass would fill the card.
+//   * Grid (CS, Hkv, B), clusters of CS = 16 blocks (the non-portable
+//     size, allowed at launch), one cluster per (b, KV head).  Block r
+//     takes the contiguous keys [r R, min(S, (r + 1) R)); the caller
+//     chooses R (kernels/flash_decode/kernel.py::split: ceil(S / CS)
+//     rounded up to KB = 32) and the launch refuses an R that leaves keys
+//     out.  A block whose range is empty adds nothing.  At the serve path's shape (S 512) each block has 32 keys,
+//     one per lane of a warp-stage; 16 blocks rather than 8 halve the
+//     chain each warp runs, and at the decode width (512 blocks of 2,048
+//     keys) smaller blocks shorten the tail of the last wave.
+//   * Inside a block, NW = 4 warps.  Block stage j is the KB keys from
+//     r R + j KB; warp w takes its KW = 8 of them and streams them
+//     through its own ring of NST = 3 shared-memory stages (16-byte
+//     cp.async copies of K and V rows, zero fill past the range), so two
+//     stages are in flight while one is computed, and the warp needs no
+//     barrier but __syncwarp.
+//   * q.k without a shuffle reduction per dot product: lane (key l % KW,
+//     part l / KW) sums its part of D for every head (q read from shared
+//     memory as broadcasts), and two shuffles add the parts.  The loops
+//     run all GMAX heads, those past G on zero rows of q, so they hold no
+//     branch and the heads' chains interleave.  Each warp keeps its own
+//     running max, sum and accumulator (lane l owns elements
+//     [l DPL, (l + 1) DPL) of D in P.V; p of key t comes from lane t by a
+//     shuffle).
+//   * The warps' partials merge in shared memory into the block's, and the
+//     blocks' partials merge on rank 0 through distributed shared memory
+//     (every rank's m, l and acc read in one round after cluster.sync),
+//     which writes o and lse: no global workspace, no counter and no
+//     second launch.  Both merges apply the rule of ref.combine_partials
+//     on unnormalised sums: M = max_i m_i, L = sum_i l_i e^(m_i - M),
+//     o = sum_i acc_i e^(m_i - M) / L, lse = M + log L, a part with
+//     m_i = -inf (no key) weighing 0.  expf/logf, not the __ intrinsics.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include <atomic>
 #include <cstddef>
+
+#include "hopper.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int U = 4;                 // tokens a warp loads per step
-constexpr int MAX_GRID_Y = 65535;
+constexpr int CS = 16;               // blocks per cluster: the split of S
+constexpr int NW = 4;                // warps per block
+constexpr int KW = 8;                // keys a warp takes per stage
+constexpr int KB = NW * KW;          // keys a block takes per stage
+constexpr int NST = 3;               // stages in each warp's ring
+constexpr int MAX_GRID_Z = 65535;
+
+template <int D>
+struct Layout {
+  static constexpr int LD = D + 4;           // row stride (floats): rows
+                                             // 16-B aligned, and the 8 keys
+                                             // one quarter-warp reads at
+                                             // one column on distinct banks
+  static constexpr int STAGE = 2 * KW * LD;  // KW rows of K, then of V
+  static constexpr int RING = NST * STAGE;   // one warp's ring
+};
+
+// dynamic shared memory: q [GMAX][D] (zero past G) | NW rings | the
+// block's partial (acc [G][D], m [G], l [G])
+template <int D, int GMAX>
+size_t smem_bytes(int G) {
+  return sizeof(float) * ((size_t)GMAX * D + (size_t)NW * Layout<D>::RING +
+                          (size_t)G * (D + 2));
+}
 
 template <int DPL>
-__device__ __forceinline__ void load_row(const float* __restrict__ p,
-                                         float (&x)[DPL]) {
+__device__ __forceinline__ void load_row(const float* p, float (&x)[DPL]) {
   if constexpr (DPL == 4) {
     const float4 t = *reinterpret_cast<const float4*>(p);
     x[0] = t.x; x[1] = t.y; x[2] = t.z; x[3] = t.w;
@@ -59,171 +108,319 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// grid (Hkv, B), NW warps; D = 32 * DPL; G <= GMAX query heads per block.
-// Dynamic shared memory: NW * G * (D + 2) floats.
-template <int DPL, int GMAX, int NW>
-__global__ void __launch_bounds__(NW * 32)
-flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, float* __restrict__ o,
-                    float* __restrict__ lse, int Hkv, int G, int S,
-                    float scale) {
-  constexpr int D = 32 * DPL;
-  const int h = blockIdx.x;
-  const size_t b = blockIdx.y;
+// grid (CS, Hkv, B), clusters (CS, 1, 1), NW * 32 threads,
+// smem_bytes<D, GMAX>(G) of dynamic shared memory; G <= GMAX query heads
+// per KV head.  The inner loops run all GMAX heads, the ones past G on
+// zero rows of q, so that they hold no branch.
+template <int D, int GMAX>
+__global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NW * 32)
+flash_decode_split_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ o,
+                          float* __restrict__ lse, int Hkv, int G, int S,
+                          int range, float scale) {
+  using L = Layout<D>;
+  constexpr int DPL = D / 32;        // elements of D a lane owns in P.V
+  constexpr int DQ = D / (32 / KW);  // elements of D a lane reads in q.k
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = blockIdx.x;       // the cluster spans grid x
+  const int h = blockIdx.y;
+  const size_t b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t kv_off = (b * Hkv + h) * (size_t)S * D + lane * DPL;
-  k += kv_off;
-  v += kv_off;
-  const size_t row0 = b * Hkv * G + (size_t)h * G;   // first query head
-  q += row0 * D + lane * DPL;
 
-  float qr[GMAX][DPL], acc[GMAX][DPL], m[GMAX], l[GMAX];
+  extern __shared__ float4 smem4[];
+  float* const q_s = reinterpret_cast<float*>(smem4);     // [GMAX][D]
+  float* const rings = q_s + (size_t)GMAX * D;             // [NW][RING]
+  float* const bpart = rings + (size_t)NW * L::RING;       // the block's
+  float* const wring = rings + (size_t)warp * L::RING;
+
+  const size_t kv0 = (b * Hkv + h) * (size_t)S * D;
+  k += kv0;
+  v += kv0;
+  const size_t row0 = (b * Hkv + h) * (size_t)G;   // first query head
+  const int s_lo = min(S, rank * range), s_hi = min(S, s_lo + range);
+  const int n_st = (s_hi - s_lo + KB - 1) / KB;    // this block's stages
+
+  // this warp's KW keys of block stage j into its ring; rows past the
+  // range read as zero
+  auto load = [&](int j) {
+    float* st = wring + (j % NST) * L::STAGE;
+    const int key0 = s_lo + j * KB + warp * KW;
+    for (int e = lane; e < 2 * KW * (D / 4); e += 32) {
+      const int row = e / (D / 4), c = (e % (D / 4)) * 4;   // row: K then V
+      const int key = key0 + row % KW;
+      const bool in = key < s_hi;
+      const float* src = (row < KW ? k : v) + (size_t)key * D + c;
+      hopper::cp_async16(st + row * L::LD + c, in ? src : k, in ? 16 : 0);
+    }
+  };
+#pragma unroll
+  for (int j = 0; j < NST - 1; ++j) {
+    if (j < n_st) load(j);
+    hopper::cp_async_commit();
+  }
+  for (int e = threadIdx.x; e < GMAX * D; e += NW * 32)
+    q_s[e] = e < G * D ? q[row0 * D + e] : 0.0f;
+  __syncthreads();
+
+  float acc[GMAX][DPL], m[GMAX], l[GMAX];
 #pragma unroll
   for (int g = 0; g < GMAX; ++g) {
-    if (g < G) {
-      load_row<DPL>(q + (size_t)g * D, qr[g]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) qr[g][i] = 0.0f;
-    }
     m[g] = -CUDART_INF_F;
     l[g] = 0.0f;
 #pragma unroll
     for (int i = 0; i < DPL; ++i) acc[g][i] = 0.0f;
   }
+  const int kk = lane % KW;          // the key this lane scores
+  const int part = lane / KW;        // and the part of D it reads
 
-  const int n_chunks = (S + U - 1) / U;
-  for (int c = warp; c < n_chunks; c += NW) {
-    const int s0 = c * U;
-    float kr[U][DPL], vr[U][DPL];
+  for (int j = 0; j < n_st; ++j) {
+    hopper::cp_async_wait<NST - 2>();       // stage j has landed
+    __syncwarp();                           // ... for every lane, and
+                                            // stage j - 1 is read
+    if (j + NST - 1 < n_st) load(j + NST - 1);
+    hopper::cp_async_commit();
+    const int key0 = s_lo + j * KB + warp * KW;
+    const int nk = min(KW, s_hi - key0);    // keys of this chunk
+    if (nk <= 0) continue;                  // warp-uniform
+    const float* ks = wring + (j % NST) * L::STAGE;
+    const float* vs = ks + KW * L::LD;
+
+    float s[GMAX];
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (s0 + u < S) {
-        load_row<DPL>(k + (size_t)(s0 + u) * D, kr[u]);
-        load_row<DPL>(v + (size_t)(s0 + u) * D, vr[u]);
-      } else {
+    for (int g = 0; g < GMAX; ++g) s[g] = 0.0f;
+    const float* kr = ks + kk * L::LD + part * DQ;
+    const float* qr = q_s + part * DQ;
 #pragma unroll
-        for (int i = 0; i < DPL; ++i) kr[u][i] = vr[u][i] = 0.0f;
+    for (int c = 0; c < DQ; c += 4) {
+      const float4 k4 = *reinterpret_cast<const float4*>(kr + c);
+#pragma unroll
+      for (int g = 0; g < GMAX; ++g) {
+        const float4 q4 = *reinterpret_cast<const float4*>(qr + g * D + c);
+        s[g] += q4.x * k4.x + q4.y * k4.y + q4.z * k4.z + q4.w * k4.w;
       }
     }
+    const bool valid = kk < nk;
 #pragma unroll
     for (int g = 0; g < GMAX; ++g) {
-      if (g < G) {
-        float s[U];
-        float cmax = -CUDART_INF_F;
+      float x = s[g];
 #pragma unroll
-        for (int u = 0; u < U; ++u) {
-          float dot = 0.0f;
+      for (int off = KW; off < 32; off <<= 1)       // add the parts of D
+        x += __shfl_xor_sync(0xffffffffu, x, off);
+      x = valid ? x * scale : -CUDART_INF_F;
+      float cmax = x;
 #pragma unroll
-          for (int i = 0; i < DPL; ++i) dot += qr[g][i] * kr[u][i];
-          dot = warp_sum(dot) * scale;
-          s[u] = (s0 + u < S) ? dot : -CUDART_INF_F;
-          cmax = fmaxf(cmax, s[u]);
-        }
-        // s0 < S, so cmax is finite and m_new is too; the first chunk
-        // scales the empty state by expf(-inf) = 0
-        const float m_new = fmaxf(m[g], cmax);
-        const float alpha = expf(m[g] - m_new);
-        l[g] *= alpha;
+      for (int off = 1; off < KW; off <<= 1)        // max over the keys
+        cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, off));
+      // key0 < s_hi, so cmax is finite and m_new is too; the first
+      // chunk scales the empty state by expf(-inf) = 0
+      const float m_new = fmaxf(m[g], cmax);
+      const float alpha = expf(m[g] - m_new);
+      const float p = expf(x - m_new);          // 0 past the range
+      l[g] = l[g] * alpha + (part == 0 ? p : 0.0f);
 #pragma unroll
-        for (int i = 0; i < DPL; ++i) acc[g][i] *= alpha;
+      for (int i = 0; i < DPL; ++i) acc[g][i] *= alpha;
+      m[g] = m_new;
+      s[g] = p;
+    }
+    // P.V; rows past the range are zero and their p is 0
 #pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const float p = expf(s[u] - m_new);     // 0 past the end of S
-          l[g] += p;
+    for (int t = 0; t < KW; ++t) {
+      float vr[DPL];
+      load_row<DPL>(vs + t * L::LD + lane * DPL, vr);
 #pragma unroll
-          for (int i = 0; i < DPL; ++i) acc[g][i] += p * vr[u][i];
-        }
-        m[g] = m_new;
+      for (int g = 0; g < GMAX; ++g) {
+        const float pt = __shfl_sync(0xffffffffu, s[g], t);
+#pragma unroll
+        for (int i = 0; i < DPL; ++i) acc[g][i] += pt * vr[i];
       }
     }
   }
 
-  // merge the NW warp partials (a warp with no chunk has m = -inf, l = 0)
-  extern __shared__ float smem[];
-  float* acc_s = smem;                       // [NW][G][D]
-  float* m_s = acc_s + (size_t)NW * G * D;   // [NW][G]
-  float* l_s = m_s + NW * G;                 // [NW][G]
+  // the warp's partial into its own ring (acc [G][D], m [G], l [G])
+  hopper::cp_async_wait<0>();
+  __syncwarp();
+  float* const w_acc = wring;
 #pragma unroll
   for (int g = 0; g < GMAX; ++g) {
     if (g < G) {
+      const float lsum = warp_sum(l[g]);
 #pragma unroll
-      for (int i = 0; i < DPL; ++i)
-        acc_s[((size_t)warp * G + g) * D + lane * DPL + i] = acc[g][i];
+      for (int i = 0; i < DPL; ++i) w_acc[g * D + lane * DPL + i] = acc[g][i];
       if (lane == 0) {
-        m_s[warp * G + g] = m[g];
-        l_s[warp * G + g] = l[g];
+        w_acc[G * D + g] = m[g];
+        w_acc[G * D + G + g] = lsum;
       }
     }
   }
   __syncthreads();
-  float* ob = o + row0 * D;
+
+  // the block's partial from its warps' (a warp with no key has m = -inf)
   for (int idx = threadIdx.x; idx < G * D; idx += NW * 32) {
-    const int g = idx / D, d = idx % D;
+    const int g = idx / D;
     float big = -CUDART_INF_F;
-    for (int w = 0; w < NW; ++w) big = fmaxf(big, m_s[w * G + g]);
+#pragma unroll
+    for (int w = 0; w < NW; ++w)
+      big = fmaxf(big, rings[w * L::RING + G * D + g]);
     float sum = 0.0f, num = 0.0f;
+#pragma unroll
     for (int w = 0; w < NW; ++w) {
-      const float mw = m_s[w * G + g];
-      if (mw == -CUDART_INF_F) continue;      // an empty warp
-      const float e = expf(mw - big);
-      sum += l_s[w * G + g] * e;
-      num += acc_s[((size_t)w * G + g) * D + d] * e;
+      const float* wp = rings + w * L::RING;
+      const float mw = wp[G * D + g];
+      const float e = mw == -CUDART_INF_F ? 0.0f : expf(mw - big);
+      sum += wp[G * D + G + g] * e;
+      num += wp[idx] * e;
     }
-    ob[(size_t)g * D + d] = sum == 0.0f ? 0.0f : num / sum;
-    if (d == 0) lse[row0 + g] = sum == 0.0f ? -1e30f : big + logf(sum);
+    bpart[idx] = num;
+    if (idx % D == 0) {
+      bpart[G * D + g] = big;
+      bpart[G * D + G + g] = sum;
+    }
   }
+  cluster.sync();      // every block's partial is written and visible
+
+  if (rank == 0) {
+    float* ob = o + row0 * D;
+    for (int idx = threadIdx.x; idx < G * D; idx += NW * 32) {
+      const int g = idx / D;
+      // every rank's m, l and acc in one round of loads
+      float mr[CS], lr[CS], ar[CS];
+#pragma unroll
+      for (int r = 0; r < CS; ++r) {
+        const float* rp = cluster.map_shared_rank(bpart, r);
+        mr[r] = rp[G * D + g];
+        lr[r] = rp[G * D + G + g];
+        ar[r] = rp[idx];
+      }
+      float big = -CUDART_INF_F;
+#pragma unroll
+      for (int r = 0; r < CS; ++r) big = fmaxf(big, mr[r]);
+      float sum = 0.0f, num = 0.0f;
+#pragma unroll
+      for (int r = 0; r < CS; ++r) {       // a block with no key adds 0
+        const float e = mr[r] == -CUDART_INF_F ? 0.0f : expf(mr[r] - big);
+        sum += lr[r] * e;
+        num += ar[r] * e;
+      }
+      ob[idx] = sum == 0.0f ? 0.0f : num / sum;
+      if (idx % D == 0) lse[row0 + g] = sum == 0.0f ? -1e30f : big + logf(sum);
+    }
+  }
+  cluster.sync();      // rank 0 has read every block's shared memory
 }
 
-template <int DPL, int GMAX>
+// The kernel's launch attributes, set once per device: the dynamic shared
+// memory of its largest group and a cluster above the portable size.
+template <int D, int GMAX>
+cudaError_t prepare() {
+  static std::atomic<unsigned long long> done{0};   // a bit per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (done.load() & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(flash_decode_split_kernel<D, GMAX>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_bytes<D, GMAX>(GMAX));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_decode_split_kernel<D, GMAX>,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
+}
+
+template <int D, int GMAX>
 int launch(const float* q, const float* k, const float* v, float* o,
-           float* lse, int B, int Hkv, int G, int S, float scale,
+           float* lse, int B, int Hkv, int G, int S, int range, float scale,
            cudaStream_t stream) {
-  constexpr int NW = GMAX >= 8 ? 8 : 16;
-  constexpr int D = 32 * DPL;
-  const size_t smem = sizeof(float) * (size_t)NW * G * (D + 2);
-  for (int b0 = 0; b0 < B; b0 += MAX_GRID_Y) {
-    const int nb = (B - b0) < MAX_GRID_Y ? (B - b0) : MAX_GRID_Y;
+  cudaError_t err = prepare<D, GMAX>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = smem_bytes<D, GMAX>(G);
+  for (int b0 = 0; b0 < B; b0 += MAX_GRID_Z) {
+    const int nb = (B - b0) < MAX_GRID_Z ? (B - b0) : MAX_GRID_Z;
     const size_t qo = (size_t)b0 * Hkv * G;
-    flash_decode_kernel<DPL, GMAX, NW>
-        <<<dim3(Hkv, nb), NW * 32, smem, stream>>>(
+    flash_decode_split_kernel<D, GMAX>
+        <<<dim3(CS, Hkv, nb), NW * 32, smem, stream>>>(
             q + qo * D, k + (size_t)b0 * Hkv * S * D,
             v + (size_t)b0 * Hkv * S * D, o + qo * D, lse + qo, Hkv, G, S,
-            scale);
-    const cudaError_t err = cudaGetLastError();
+            range, scale);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaSuccess);
 }
 
-template <int DPL>
-int launch_g(const float* q, const float* k, const float* v, float* o,
-             float* lse, int B, int Hkv, int G, int S, float scale,
-             cudaStream_t stream) {
-  if (G <= 1) return launch<DPL, 1>(q, k, v, o, lse, B, Hkv, G, S, scale, stream);
-  if (G <= 2) return launch<DPL, 2>(q, k, v, o, lse, B, Hkv, G, S, scale, stream);
-  if (G <= 4) return launch<DPL, 4>(q, k, v, o, lse, B, Hkv, G, S, scale, stream);
-  if (G <= 8) return launch<DPL, 8>(q, k, v, o, lse, B, Hkv, G, S, scale, stream);
+// dynamic shared memory of a block and the clusters the card holds at
+// once, for G query heads per KV head
+template <int D, int GMAX>
+int describe(int G, int* smem, int* resident) {
+  *smem = (int)smem_bytes<D, GMAX>(G);
+  cudaError_t err = prepare<D, GMAX>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(CS, 1, 1);
+  config.blockDim = dim3(NW * 32, 1, 1);
+  config.dynamicSmemBytes = *smem;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      resident, (const void*)flash_decode_split_kernel<D, GMAX>, &config));
+}
+
+template <int D_, int GMAX_>
+struct Variant {
+  static constexpr int D = D_, GMAX = GMAX_;
+};
+
+// f(Variant<D, GMAX>{}) for the instantiation that serves head dim D and G
+// query heads per KV head (GMAX the least of 1, 2, 4, 8 that holds G)
+template <int D, typename F>
+int with_group(int G, F f) {
+  if (G < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (G <= 1) return f(Variant<D, 1>{});
+  if (G <= 2) return f(Variant<D, 2>{});
+  if (G <= 4) return f(Variant<D, 4>{});
+  if (G <= 8) return f(Variant<D, 8>{});
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename F>
+int with_variant(int D, int G, F f) {
+  switch (D) {
+    case 32: return with_group<32>(G, f);
+    case 64: return with_group<64>(G, f);
+    case 128: return with_group<128>(G, f);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 // o (B,Hq,D), lse (B,Hq) = one-token attention of q (B,Hq,D) over
 // k, v (B,Hkv,S,D); all f32, contiguous, 16-byte aligned.  D in
-// {32, 64, 128}, Hq = G * Hkv with G <= 8, S >= 1.
+// {32, 64, 128}, Hq = G * Hkv with G <= 8, S >= 1; block r of a cluster
+// takes keys [r range, (r + 1) range), and CS * range must cover S.
 extern "C" int bddt_flash_decode(const float* q, const float* k,
                                  const float* v, float* o, float* lse,
                                  int B, int Hq, int Hkv, int S, int D,
-                                 float scale, void* stream) {
-  if (B < 1 || Hkv < 1 || S < 1 || Hq % Hkv != 0)
+                                 int range, float scale, void* stream) {
+  if (B < 1 || Hkv < 1 || S < 1 || Hq % Hkv != 0 || range < 1 ||
+      (long long)CS * range < S)
     return static_cast<int>(cudaErrorInvalidValue);
   const int G = Hq / Hkv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32: return launch_g<1>(q, k, v, o, lse, B, Hkv, G, S, scale, s);
-    case 64: return launch_g<2>(q, k, v, o, lse, B, Hkv, G, S, scale, s);
-    case 128: return launch_g<4>(q, k, v, o, lse, B, Hkv, G, S, scale, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return with_variant(D, G, [&](auto var) {
+    using V = decltype(var);
+    return launch<V::D, V::GMAX>(q, k, v, o, lse, B, Hkv, G, S, range,
+                                 scale, s);
+  });
+}
+
+// The dynamic shared memory of a block and the clusters the card holds at
+// once, for G query heads per KV head at head dim D; 0 on success
+extern "C" int bddt_flash_decode_describe(int G, int D, int* smem,
+                                          int* resident) {
+  return with_variant(D, G, [&](auto var) {
+    using V = decltype(var);
+    return describe<V::D, V::GMAX>(G, smem, resident);
+  });
 }

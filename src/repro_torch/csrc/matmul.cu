@@ -8,34 +8,42 @@
 // batched over a leading task axis t: one launch serves a whole wave group,
 // the task axis the grid's outermost (z) axis.
 //
-// GEMM (tile_gemm_kernel).  Bound on an H100 (SXM, 700 W) at the matmul
-// app's wave (256 tasks of 64^3): 16.8 MB, about 5 us at 3.35 TB/s,
-// against 134 MFLOP, about 2 us at 67 TFLOP/s FP32: memory-bound.  Each
-// block stages 64x16 slices of A and B in shared memory over a K loop and
-// each of its 256 threads keeps a 4x4 register tile, so every operand
-// element is read from device memory once per 64-wide output tile.
-// Products use FP32 FFMA, never plain TF32: TF32 keeps about three decimal
-// digits and misses the 1e-4 tolerance of the reference.  The product is
-// accumulated from zero and combined with c in the epilogue, the
-// reference's order (c + (a @ b)).
+// Both are memory-bound on an H100 (SXM, 700 W): the matmul app's wave
+// (256 tasks of 64^3) moves 16.8 MB, 5.0 us at 3.35 TB/s, and the Cholesky
+// app's largest update wave (120 tasks of 128^3) 31.5 MB, 9.4 us, against
+// three tf32 products of 0.13 and 0.50 GFLOP, well under 2 us at
+// 495 TFLOP/s.  So the design's job is to keep loads in flight.  One body,
+// tile_mma_3xtf32, serves both kernels; what differs is a template
+// parameter (Op):
 //
-// Tile update (tile_update_3xtf32_kernel).  Bound at the Cholesky app's
-// largest wave (120 tasks of 128^3): 31.5 MB, 9.4 us at 3.35 TB/s, against
-// three tf32 products of 503 MFLOP each, about 3 us at 495 TFLOP/s:
-// memory-bound, so the design's job is to keep loads in flight.  One block
-// of 256 threads owns a 64x128 output tile of one task (240 blocks at that
-// wave, enough for 132 SMs at two blocks each, where 128x128 tiles would
-// give 120 blocks and leave 12 SMs idle).  32-deep slices of a and b stream
-// through a ring of three shared-memory stages with cp.async (16-byte
-// copies when K is a multiple of 4, else 4-byte ones; zero fill past K, M
-// and N), so two slices load while one is multiplied.  Products run on the
-// tensor cores as 3xTF32: each operand splits into hi = tf32(x) and
-// lo = tf32(x - hi), and mma.sync m16n8k8 accumulates a_lo b_hi + a_hi
-// b_lo + a_hi b_hi in f32 (the a_lo b_lo term, 2^-22 relative, is left
-// out).  Each product is then exact to some 2^-21 relative, near f32's
-// 2^-24, where plain TF32 gives 2^-11; at K 128 with unit-normal operands
-// that is some 1e-5 absolute against the 1e-4 tolerance.  The epilogue
-// subtracts from c.
+//   * Products on the tensor cores as 3xTF32: each operand splits into
+//     hi = tf32(x) and lo = tf32(x - hi), and mma.sync m16n8k8 accumulates
+//     a_lo b_hi + a_hi b_lo + a_hi b_hi in f32 (the a_lo b_lo term, 2^-22
+//     relative, is left out).  Each product is then exact to some 2^-21
+//     relative, near f32's 2^-24, where plain TF32 gives 2^-11 and misses
+//     the reference's 1e-4 at K 64 and K 128.  Every warp owns a 32x32
+//     output tile.
+//   * 32-deep slices of a and b stream through a ring of three
+//     shared-memory stages with cp.async (16-byte copies when rows are
+//     16-byte aligned, else 4-byte ones; zero fill past M, N and K).  The
+//     prologue issues two slices before the first product, so at K <= 64
+//     (the matmul app's tiles) every operand byte is in flight at once.
+//   * a is staged [m][k] with a row stride of 36 floats, so the 8 rows and
+//     4 columns an A fragment reads fall on distinct banks.  The tile
+//     update stages b (N,K) the same way.  The GEMM reads b in its own
+//     (K,N) layout, staged [k][n] with a row stride of N_tile + 8 floats:
+//     a B fragment reads B[k0+q][n0+g] and B[k0+q+4][n0+g], which then fall
+//     on bank 8q + g, all distinct; its 16-byte copies run along n.
+//   * GEMM (Op::kGemm): tiles of 64x64 outputs per block of 4 warps (256
+//     blocks at the app's wave; 32x64 tiles, 512 blocks, measured slower
+//     on the H100, PERF.md section 6).  c's fragments are read into registers right after the
+//     prologue, so their round trip overlaps the operands'.  The product
+//     is accumulated from zero and c added in the epilogue, the
+//     reference's order (c + (a @ b)); each thread stores its two adjacent
+//     columns as one float2.
+//   * Tile update (Op::kUpdate): 64x128 outputs per block of 8 warps (240
+//     blocks at the Cholesky wave, two an SM, where 128x128 tiles would
+//     leave 12 SMs idle); c is read in the epilogue, which subtracts.
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -45,120 +53,27 @@
 
 namespace {
 
-constexpr int BM = 64;       // output rows per block
-constexpr int BN = 64;       // output cols per block
-constexpr int BK = 16;       // depth of one shared-memory stage
-constexpr int THREADS = 256; // 16 x 16 threads, 4 x 4 outputs each
 constexpr int MAX_GRID_Z = 65535;
-
-template <bool TRANS_B, bool SUBTRACT>
-__global__ void __launch_bounds__(THREADS)
-tile_gemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                 const float* __restrict__ c, float* __restrict__ out,
-                 int M, int N, int K) {
-  // As[k][m] and Bs[k][n]: k-major so the inner product reads rows; the
-  // +1 pad spreads the transposing stores of A (and of B^T) over banks
-  __shared__ float As[BK][BM + 1];
-  __shared__ float Bs[BK][BN + 1];
-
-  const size_t t = blockIdx.z;
-  a += t * (size_t)M * K;
-  b += t * (size_t)K * N;
-  c += t * (size_t)M * N;
-  out += t * (size_t)M * N;
-
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
-  const int tx = threadIdx.x % 16;   // output cols tx + 16 j
-  const int ty = threadIdx.x / 16;   // output rows ty + 16 i
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // A slice (BM x BK): consecutive threads read consecutive k of a row
-    for (int e = threadIdx.x; e < BM * BK; e += THREADS) {
-      const int m = e / BK, k = e % BK;
-      const int gm = row0 + m, gk = k0 + k;
-      As[k][m] = (gm < M && gk < K) ? a[(size_t)gm * K + gk] : 0.0f;
-    }
-    if (TRANS_B) {
-      // b is (N, K): B^T slice read row by row of b, like A
-      for (int e = threadIdx.x; e < BN * BK; e += THREADS) {
-        const int n = e / BK, k = e % BK;
-        const int gn = col0 + n, gk = k0 + k;
-        Bs[k][n] = (gn < N && gk < K) ? b[(size_t)gn * K + gk] : 0.0f;
-      }
-    } else {
-      // b is (K, N): consecutive threads read consecutive n
-      for (int e = threadIdx.x; e < BK * BN; e += THREADS) {
-        const int k = e / BN, n = e % BN;
-        const int gk = k0 + k, gn = col0 + n;
-        Bs[k][n] = (gk < K && gn < N) ? b[(size_t)gk * N + gn] : 0.0f;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = As[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Bs[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = row0 + ty + 16 * i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = col0 + tx + 16 * j;
-      if (gn >= N) continue;
-      const size_t o = (size_t)gm * N + gn;
-      out[o] = SUBTRACT ? c[o] - acc[i][j] : c[o] + acc[i][j];
-    }
-  }
-}
-
-template <bool TRANS_B, bool SUBTRACT>
-int launch(const float* a, const float* b, const float* c, float* out,
-           int n, int M, int N, int K, void* stream) {
-  const dim3 block(THREADS);
-  const size_t sa = (size_t)M * K, sb = (size_t)K * N, sc = (size_t)M * N;
-  // the task axis is grid z, capped at 65,535 per launch by CUDA
-  for (int t0 = 0; t0 < n; t0 += MAX_GRID_Z) {
-    const int nt = (n - t0) < MAX_GRID_Z ? (n - t0) : MAX_GRID_Z;
-    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, nt);
-    tile_gemm_kernel<TRANS_B, SUBTRACT>
-        <<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-            a + t0 * sa, b + t0 * sb, c + t0 * sc, out + t0 * sc, M, N, K);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ------------------------------------------------------ 3xTF32 tile update
-constexpr int UM = 64;           // output rows per block
-constexpr int UN = 128;          // output cols per block
 constexpr int UK = 32;           // depth of one stage
-constexpr int ULD = UK + 4;      // shared row stride (floats): the 8 rows
-                                 // and 4 columns a fragment reads hit
-                                 // distinct banks; rows stay 16-B aligned
-constexpr int USTAGES = 3;
-constexpr int UTHREADS = 256;    // 8 warps, 2 x 4, each 32 x 32 outputs
-constexpr size_t USTAGE_FLOATS = (size_t)(UM + UN) * ULD;
-constexpr size_t USMEM = USTAGES * USTAGE_FLOATS * sizeof(float);
+constexpr int ALD = UK + 4;      // row stride (floats) of a [row][k] slice:
+                                 // the 8 rows and 4 columns a fragment
+                                 // reads hit distinct banks; rows stay
+                                 // 16-B aligned
+constexpr int STAGES = 3;
+
+enum class Op { kGemm, kUpdate };
+
+template <Op OP, int BM, int BN>
+struct Tile {
+  static constexpr int WARPS_N = BN / 32;
+  static constexpr int THREADS = (BM / 32) * WARPS_N * 32;
+  // b's slice: [k][n] (row stride BN + 8) for the GEMM, [n][k] for the update
+  static constexpr int BLD = OP == Op::kGemm ? BN + 8 : ALD;
+  static constexpr int A_FLOATS = BM * ALD;
+  static constexpr int B_FLOATS = OP == Op::kGemm ? UK * BLD : BN * ALD;
+  static constexpr int STAGE_FLOATS = A_FLOATS + B_FLOATS;
+  static constexpr size_t SMEM = STAGES * STAGE_FLOATS * sizeof(float);
+};
 
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
                                            uint32_t& lo) {
@@ -166,48 +81,73 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
   lo = hopper::to_tf32(x - __uint_as_float(hi));
 }
 
-// one UK-deep slice of a (rows of M) or b (rows of N) into shared memory,
-// zero past the matrix
-template <bool VEC, int ROWS>
-__device__ __forceinline__ void load_slice(float* dst, const float* src,
-                                           int rows, int K, int r0, int k0) {
+// rows [r0, r0 + ROWS) x depth [k0, k0 + UK) of a row-major (rows, K)
+// matrix into dst[r][k] (row stride ALD), zero past the matrix
+template <bool VEC, int ROWS, int THREADS>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int rows, int K, int r0, int k0) {
   if constexpr (VEC) {
-    for (int e = threadIdx.x; e < ROWS * (UK / 4); e += UTHREADS) {
+    for (int e = threadIdx.x; e < ROWS * (UK / 4); e += THREADS) {
       const int r = e / (UK / 4), kc = (e % (UK / 4)) * 4;
       const bool in = r0 + r < rows && k0 + kc < K;
-      hopper::cp_async16(dst + r * ULD + kc,
+      hopper::cp_async16(dst + r * ALD + kc,
                          in ? src + (size_t)(r0 + r) * K + k0 + kc : src,
                          in ? 16 : 0);
     }
   } else {
-    for (int e = threadIdx.x; e < ROWS * UK; e += UTHREADS) {
+    for (int e = threadIdx.x; e < ROWS * UK; e += THREADS) {
       const int r = e / UK, kc = e % UK;
       const bool in = r0 + r < rows && k0 + kc < K;
-      hopper::cp_async4(dst + r * ULD + kc,
+      hopper::cp_async4(dst + r * ALD + kc,
                         in ? src + (size_t)(r0 + r) * K + k0 + kc : src,
                         in ? 4 : 0);
     }
   }
 }
 
-// grid (ceil(N / UN), ceil(M / UM), tasks), UTHREADS threads, USMEM bytes
-// of dynamic shared memory
-template <bool VEC>
-__global__ void __launch_bounds__(UTHREADS, 2)
-tile_update_3xtf32_kernel(const float* __restrict__ c,
-                          const float* __restrict__ a,
-                          const float* __restrict__ b,
-                          float* __restrict__ out, int M, int N, int K) {
-  extern __shared__ float4 usmem4[];
-  float* const smem = reinterpret_cast<float*>(usmem4);
+// depth [k0, k0 + UK) x columns [c0, c0 + COLS) of a row-major (K, N)
+// matrix into dst[k][n] (row stride LD), zero past the matrix
+template <bool VEC, int COLS, int LD, int THREADS>
+__device__ __forceinline__ void load_cols(float* dst, const float* src,
+                                          int K, int N, int k0, int c0) {
+  if constexpr (VEC) {
+    for (int e = threadIdx.x; e < UK * (COLS / 4); e += THREADS) {
+      const int k = e / (COLS / 4), nc = (e % (COLS / 4)) * 4;
+      const bool in = k0 + k < K && c0 + nc < N;
+      hopper::cp_async16(dst + k * LD + nc,
+                         in ? src + (size_t)(k0 + k) * N + c0 + nc : src,
+                         in ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < UK * COLS; e += THREADS) {
+      const int k = e / COLS, nc = e % COLS;
+      const bool in = k0 + k < K && c0 + nc < N;
+      hopper::cp_async4(dst + k * LD + nc,
+                        in ? src + (size_t)(k0 + k) * N + c0 + nc : src,
+                        in ? 4 : 0);
+    }
+  }
+}
+
+// The shared body.  grid (ceil(N / BN), ceil(M / BM), tasks),
+// Tile::THREADS threads, Tile::SMEM bytes of dynamic shared memory.  VEC:
+// 16-byte copies (and float2 accesses of c and out in the GEMM).
+template <Op OP, int BM, int BN, bool VEC>
+__device__ __forceinline__ void tile_mma_3xtf32(
+    const float* __restrict__ a, const float* __restrict__ b,
+    const float* __restrict__ c, float* __restrict__ out, int M, int N,
+    int K) {
+  using T = Tile<OP, BM, BN>;
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
   const size_t t = blockIdx.z;
   a += t * (size_t)M * K;
-  b += t * (size_t)N * K;
+  b += t * (size_t)K * N;
   c += t * (size_t)M * N;
   out += t * (size_t)M * N;
-  const int row0 = blockIdx.y * UM, col0 = blockIdx.x * UN;
+  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = (warp / 4) * 32, wn = (warp % 4) * 32;   // warp's corner
+  const int wm = (warp / T::WARPS_N) * 32, wn = (warp % T::WARPS_N) * 32;
   const int g = lane / 4, q = lane % 4;                    // fragment coords
 
   float acc[2][4][4];
@@ -219,41 +159,82 @@ tile_update_3xtf32_kernel(const float* __restrict__ c,
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
   const int n_k = (K + UK - 1) / UK;
-  auto stage = [&](int s) { return smem + s * USTAGE_FLOATS; };
+  auto stage = [&](int s) { return smem + s * T::STAGE_FLOATS; };
   auto load = [&](int kt) {
-    float* st = stage(kt % USTAGES);
-    load_slice<VEC, UM>(st, a, M, K, row0, kt * UK);
-    load_slice<VEC, UN>(st + UM * ULD, b, N, K, col0, kt * UK);
+    float* st = stage(kt % STAGES);
+    load_rows<VEC, BM, T::THREADS>(st, a, M, K, row0, kt * UK);
+    if constexpr (OP == Op::kGemm)
+      load_cols<VEC, BN, T::BLD, T::THREADS>(st + T::A_FLOATS, b, K, N,
+                                             kt * UK, col0);
+    else
+      load_rows<VEC, BN, T::THREADS>(st + T::A_FLOATS, b, N, K, col0,
+                                     kt * UK);
   };
 #pragma unroll
-  for (int kt = 0; kt < USTAGES - 1; ++kt) {
+  for (int kt = 0; kt < STAGES - 1; ++kt) {
     if (kt < n_k) load(kt);
     hopper::cp_async_commit();
   }
+
+  // accumulator e of (i, j): row g + 8 (e >> 1), column 2 q + (e & 1)
+  auto row_of = [&](int i, int e) { return row0 + wm + 16 * i + g + 8 * (e >> 1); };
+  auto col_of = [&](int j, int e) { return col0 + wn + 8 * j + 2 * q + (e & 1); };
+
+  // the GEMM's c, in fragment layout, read while the operands are in flight
+  float cf[2][4][4];
+  if constexpr (OP == Op::kGemm) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const int gm = row_of(i, e), gn = col_of(j, e);
+          if constexpr (VEC) {      // N % 4 == 0: both columns or neither
+            float2 x = make_float2(0.f, 0.f);
+            if (gm < M && gn < N)
+              x = *reinterpret_cast<const float2*>(c + (size_t)gm * N + gn);
+            cf[i][j][e] = x.x;
+            cf[i][j][e + 1] = x.y;
+          } else {
+#pragma unroll
+            for (int u = 0; u < 2; ++u)
+              cf[i][j][e + u] = gm < M && gn + u < N
+                                    ? c[(size_t)gm * N + gn + u] : 0.f;
+          }
+        }
+  }
+
   for (int kt = 0; kt < n_k; ++kt) {
-    hopper::cp_async_wait<USTAGES - 2>();   // slice kt has landed
+    hopper::cp_async_wait<STAGES - 2>();    // slice kt has landed
     __syncthreads();                        // ... for every thread, and
                                             // slice kt - 1 is read
-    if (kt + USTAGES - 1 < n_k) load(kt + USTAGES - 1);
+    if (kt + STAGES - 1 < n_k) load(kt + STAGES - 1);
     hopper::cp_async_commit();
-    const float* As = stage(kt % USTAGES);
-    const float* Bs = As + UM * ULD;
+    const float* As = stage(kt % STAGES);
+    const float* Bs = As + T::A_FLOATS;
 #pragma unroll
     for (int ks = 0; ks < UK; ks += 8) {
       uint32_t ahi[2][4], alo[2][4], bhi[4][2], blo[4][2];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        const float* ar = As + (wm + 16 * i + g) * ULD + ks + q;
+        const float* ar = As + (wm + 16 * i + g) * ALD + ks + q;
         split_tf32(ar[0], ahi[i][0], alo[i][0]);
-        split_tf32(ar[8 * ULD], ahi[i][1], alo[i][1]);
+        split_tf32(ar[8 * ALD], ahi[i][1], alo[i][1]);
         split_tf32(ar[4], ahi[i][2], alo[i][2]);
-        split_tf32(ar[8 * ULD + 4], ahi[i][3], alo[i][3]);
+        split_tf32(ar[8 * ALD + 4], ahi[i][3], alo[i][3]);
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float* br = Bs + (wn + 8 * j + g) * ULD + ks + q;
-        split_tf32(br[0], bhi[j][0], blo[j][0]);
-        split_tf32(br[4], bhi[j][1], blo[j][1]);
+        if constexpr (OP == Op::kGemm) {    // B[k][n]: rows q and q + 4
+          const float* br = Bs + (ks + q) * T::BLD + wn + 8 * j + g;
+          split_tf32(br[0], bhi[j][0], blo[j][0]);
+          split_tf32(br[4 * T::BLD], bhi[j][1], blo[j][1]);
+        } else {                            // B^T[n][k]: columns q and q + 4
+          const float* br = Bs + (wn + 8 * j + g) * ALD + ks + q;
+          split_tf32(br[0], bhi[j][0], blo[j][0]);
+          split_tf32(br[4], bhi[j][1], blo[j][1]);
+        }
       }
       // the small terms first
 #pragma unroll
@@ -267,50 +248,127 @@ tile_update_3xtf32_kernel(const float* __restrict__ c,
     }
   }
 
-  // accumulator e of (i, j): row g + 8 (e >> 1), column 2 q + (e & 1)
+  if constexpr (OP == Op::kGemm) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int gm = row0 + wm + 16 * i + g + 8 * (e >> 1);
-      if (gm >= M) continue;
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int gn = col0 + wn + 8 * j + 2 * q + (e & 1);
-        if (gn >= N) continue;
-        const size_t o = (size_t)gm * N + gn;
-        out[o] = c[o] - acc[i][j][e];
+        for (int e = 0; e < 4; e += 2) {
+          const int gm = row_of(i, e), gn = col_of(j, e);
+          if (gm >= M) continue;
+          const size_t o = (size_t)gm * N + gn;
+          if constexpr (VEC) {
+            if (gn < N)
+              *reinterpret_cast<float2*>(out + o) = make_float2(
+                  cf[i][j][e] + acc[i][j][e],
+                  cf[i][j][e + 1] + acc[i][j][e + 1]);
+          } else {
+#pragma unroll
+            for (int u = 0; u < 2; ++u)
+              if (gn + u < N) out[o + u] = cf[i][j][e + u] + acc[i][j][e + u];
+          }
+        }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int gm = row_of(i, e);
+        if (gm >= M) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int gn = col_of(j, e);
+          if (gn >= N) continue;
+          const size_t o = (size_t)gm * N + gn;
+          out[o] = c[o] - acc[i][j][e];
+        }
       }
-    }
+  }
+}
+
+constexpr int GEMM_BM = 64, GEMM_BN = 64;
+constexpr int UPDATE_BM = 64, UPDATE_BN = 128;
+
+template <bool VEC>
+__global__ void __launch_bounds__(Tile<Op::kGemm, GEMM_BM, GEMM_BN>::THREADS,
+                                  2)
+tile_gemm_3xtf32_kernel(const float* __restrict__ a,
+                        const float* __restrict__ b,
+                        const float* __restrict__ c,
+                        float* __restrict__ out, int M, int N, int K) {
+  tile_mma_3xtf32<Op::kGemm, GEMM_BM, GEMM_BN, VEC>(a, b, c, out, M, N, K);
 }
 
 template <bool VEC>
-int launch_update(const float* c, const float* a, const float* b,
-                  float* out, int n, int M, int N, int K, void* stream) {
+__global__ void __launch_bounds__(
+    Tile<Op::kUpdate, UPDATE_BM, UPDATE_BN>::THREADS, 2)
+tile_update_3xtf32_kernel(const float* __restrict__ c,
+                          const float* __restrict__ a,
+                          const float* __restrict__ b,
+                          float* __restrict__ out, int M, int N, int K) {
+  tile_mma_3xtf32<Op::kUpdate, UPDATE_BM, UPDATE_BN, VEC>(a, b, c, out, M,
+                                                          N, K);
+}
+
+// One launch per MAX_GRID_Z tasks of `kernel(x, y, z, out, M, N, K)`,
+// whose inputs hold sx, sy and sz floats a task.
+template <typename Kernel>
+int launch_batched(Kernel kernel, int threads, size_t smem, int bm, int bn,
+                   const float* x, size_t sx, const float* y, size_t sy,
+                   const float* z, size_t sz, float* out, int n, int M,
+                   int N, int K, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      tile_update_3xtf32_kernel<VEC>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)USMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t sa = (size_t)M * K, sb = (size_t)N * K, sc = (size_t)M * N;
+  const size_t so = (size_t)M * N;
   for (int t0 = 0; t0 < n; t0 += MAX_GRID_Z) {
     const int nt = (n - t0) < MAX_GRID_Z ? (n - t0) : MAX_GRID_Z;
-    const dim3 grid((N + UN - 1) / UN, (M + UM - 1) / UM, nt);
-    tile_update_3xtf32_kernel<VEC>
-        <<<grid, UTHREADS, USMEM, static_cast<cudaStream_t>(stream)>>>(
-            c + t0 * sc, a + t0 * sa, b + t0 * sb, out + t0 * sc, M, N, K);
+    const dim3 grid((N + bn - 1) / bn, (M + bm - 1) / bm, nt);
+    kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+        x + t0 * sx, y + t0 * sy, z + t0 * sz, out + t0 * so, M, N, K);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool VEC>
+int launch_gemm(const float* a, const float* b, const float* c, float* out,
+                int n, int M, int N, int K, void* stream) {
+  using T = Tile<Op::kGemm, GEMM_BM, GEMM_BN>;
+  return launch_batched(tile_gemm_3xtf32_kernel<VEC>, T::THREADS, T::SMEM,
+                        GEMM_BM, GEMM_BN, a, (size_t)M * K, b,
+                        (size_t)K * N, c, (size_t)M * N, out, n, M, N, K,
+                        stream);
+}
+
+template <bool VEC>
+int launch_update(const float* c, const float* a, const float* b,
+                  float* out, int n, int M, int N, int K, void* stream) {
+  using T = Tile<Op::kUpdate, UPDATE_BM, UPDATE_BN>;
+  return launch_batched(tile_update_3xtf32_kernel<VEC>, T::THREADS, T::SMEM,
+                        UPDATE_BM, UPDATE_BN, c, (size_t)M * N, a,
+                        (size_t)M * K, b, (size_t)N * K, out, n, M, N, K,
+                        stream);
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 }  // namespace
 
-// out[t] = c[t] + a[t] @ b[t]; a (n,M,K), b (n,K,N), c/out (n,M,N)
+// out[t] = c[t] + a[t] @ b[t]; a (n,M,K), b (n,K,N), c/out (n,M,N); 16-byte
+// copies when K and N are multiples of 4 and every pointer is 16-byte
+// aligned
 extern "C" int bddt_matmul_batched(const float* a, const float* b,
                                    const float* c, float* out, int n, int M,
                                    int N, int K, void* stream) {
-  return launch<false, false>(a, b, c, out, n, M, N, K, stream);
+  const bool vec = K % 4 == 0 && N % 4 == 0 && aligned16(a) &&
+                   aligned16(b) && aligned16(c) && aligned16(out);
+  return vec ? launch_gemm<true>(a, b, c, out, n, M, N, K, stream)
+             : launch_gemm<false>(a, b, c, out, n, M, N, K, stream);
 }
 
 // out[t] = c[t] - a[t] @ b[t]^T; a (n,M,K), b (n,N,K), c/out (n,M,N); 16-byte
@@ -318,9 +376,7 @@ extern "C" int bddt_matmul_batched(const float* a, const float* b,
 extern "C" int bddt_tile_update_batched(const float* c, const float* a,
                                         const float* b, float* out, int n,
                                         int M, int N, int K, void* stream) {
-  const bool vec = K % 4 == 0 &&
-                   (reinterpret_cast<uintptr_t>(a) |
-                    reinterpret_cast<uintptr_t>(b)) % 16 == 0;
+  const bool vec = K % 4 == 0 && aligned16(a) && aligned16(b);
   return vec ? launch_update<true>(c, a, b, out, n, M, N, K, stream)
              : launch_update<false>(c, a, b, out, n, M, N, K, stream);
 }

@@ -18,7 +18,9 @@ compiler's report (registers, shared memory, spills) is kept beside it as
 of a kernel builds it, or :func:`build_all` builds every source at once,
 one ``nvcc`` process per source, all started together.
 :func:`sass_counts` counts instructions in a built library's machine code
-(``cuobjdump --dump-sass``), to show which units a kernel uses.
+(``cuobjdump --dump-sass``), to show which units a kernel uses, and
+:func:`ptxas_report` reads each kernel's registers, spills and static
+shared memory from the compiler's report.
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ import torch
 
 __all__ = ["SOURCES", "CSRC", "BUILD_DIR", "nvcc_path", "build_all", "load",
            "check", "require", "stream_handle", "sass_counts",
-           "TENSOR_CORE_SASS"]
+           "ptxas_report", "TENSOR_CORE_SASS"]
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
@@ -43,15 +45,17 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
 SOURCES = ("matmul", "jacobi", "flash_decode", "black_scholes",
            "flash_attention")
 
-# the kernels that must run on the tensor cores, by source: the function
-# (a part of its mangled name) and the SASS lines that show it, for
+# the kernels that must run on the tensor cores, by source: for each
+# kernel (a part of its mangled name), the SASS lines that show it, for
 # sass_counts -- wgmma (HGMMA) fed by TMA (UTMALDG) in the bf16 flash
-# attention, tf32 tensor-core products in the tile update
+# attention, tf32 tensor-core products in the GEMM and the tile update
+_TF32_MMA = {"HMMA.TF32": r"\bHG?MMA\.\S*TF32"}
 TENSOR_CORE_SASS = {
-    "flash_attention": ("flash_attention_bf16_kernel",
-                        {"HGMMA": r"\bHGMMA\.", "UTMALDG": r"\bUTMALDG\b"}),
-    "matmul": ("tile_update_3xtf32_kernel",
-               {"HMMA.TF32": r"\bHG?MMA\.\S*TF32"}),
+    "flash_attention": {
+        "flash_attention_bf16_kernel": {"HGMMA": r"\bHGMMA\.",
+                                        "UTMALDG": r"\bUTMALDG\b"}},
+    "matmul": {"tile_gemm_3xtf32_kernel": _TF32_MMA,
+               "tile_update_3xtf32_kernel": _TF32_MMA},
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -213,3 +217,40 @@ def sass_counts(name: str, function: str,
     if not matched:
         raise RuntimeError(f"no kernel named *{function}* in {path.name}")
     return counts
+
+
+def ptxas_report(name: str, function: str) -> dict[str, dict[str, int]]:
+    """For each kernel of ``csrc/<name>.cu`` whose mangled name contains
+    ``function``: its registers, spill stores and loads (bytes) and static
+    shared memory (bytes), from the ``-Xptxas -v`` report kept beside the
+    library (built first if needed).  Raises if no kernel's name
+    matches."""
+    path = build_all((name,))[name]
+    report: dict[str, dict[str, int]] = {}
+    current = None
+    for line in path.with_suffix(".log").read_text(
+            encoding="utf-8").splitlines():
+        head = re.search(r"Compiling entry function '(\S+)'", line)
+        if head:
+            current = head.group(1) if function in head.group(1) else None
+            if current:
+                report[current] = dict(registers=0, spill_stores=0,
+                                       spill_loads=0, smem=0)
+            continue
+        if current is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill:
+            report[current].update(spill_stores=int(spill.group(1)),
+                                   spill_loads=int(spill.group(2)))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            report[current]["registers"] = int(used.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            if smem:
+                report[current]["smem"] = int(smem.group(1))
+    if not report:
+        raise RuntimeError(f"no kernel named *{function}* in "
+                           f"{path.with_suffix('.log').name}")
+    return report

@@ -8,12 +8,13 @@ log-sum-exp that ``ref.combine_partials`` merges shards with
 
 Bound on an H100: memory — K and V stream past once, against 4 flops an
 element.  The TPU kernel carries its online-softmax state across a
-sequential grid axis; Hopper has none, so one block owns one (batch row,
-KV head) and its warps take interleaved chunks of the sequence, each
-with its own running max, sum and accumulator in registers, merged at
-the end through shared memory by the exact log-sum-exp rule.  Known gap:
-only B x Hkv blocks run (32 of 132 SMs at Mistral-NeMo-12B's decode
-width); a split over S with a second combine pass is later work.
+sequential grid axis; Hopper has none, so the kernel splits S across a
+thread-block cluster of :data:`CLUSTER_SIZE` blocks per (batch row, KV
+head), each on a contiguous range of keys (:func:`split`).  A block's
+warps stream their keys through rings of shared-memory stages, each warp
+with its own running max, sum and accumulator; the warps' partials merge
+in shared memory and the blocks' on the cluster's first block through
+distributed shared memory, by the exact log-sum-exp rule, in one launch.
 
 The wrapper runs the plain version (``ref.decode_partial``) for tensors
 on the CPU and launches the kernel for tensors on a CUDA device, and
@@ -28,21 +29,48 @@ from .. import _build
 from . import ref
 
 __all__ = ["flash_decode", "flash_decode_plain", "SUPPORTED_HEAD_DIMS",
-           "MAX_GROUP"]
+           "MAX_GROUP", "CLUSTER_SIZE", "KEYS_PER_STAGE", "WARP_KEYS",
+           "split"]
 
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 8                       # query heads per KV head
+CLUSTER_SIZE = 16                   # blocks per (batch row, KV head)
+KEYS_PER_STAGE = 32                 # keys of one block stage
+WARP_KEYS = 8                       # ... of which each of 4 warps takes 8
+
+
+def split(s: int) -> tuple[int, int]:
+    """``(cluster size, keys per block)`` of a call over ``s`` keys: block
+    r of a cluster takes keys ``[r R, min(s, (r + 1) R))``, ``R =
+    ceil(s / CLUSTER_SIZE)`` rounded up to a whole stage, so a block's
+    range may be short or empty.  The wrapper passes R to the kernel."""
+    r = -(-s // CLUSTER_SIZE)
+    return CLUSTER_SIZE, -(-r // KEYS_PER_STAGE) * KEYS_PER_STAGE
 
 
 @functools.cache
 def _lib():
-    """The built library, its entry's C signature set once."""
+    """The built library, its entries' C signatures set once."""
     lib = _build.load("flash_decode")
     lib.bddt_flash_decode.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 +
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 +
         [ctypes.c_float, ctypes.c_void_p])
     lib.bddt_flash_decode.restype = ctypes.c_int
+    lib.bddt_flash_decode_describe.argtypes = (
+        [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2)
+    lib.bddt_flash_decode_describe.restype = ctypes.c_int
     return lib
+
+
+def occupancy(g: int, d: int) -> tuple[int, int]:
+    """``(dynamic shared-memory bytes of a block, clusters the card holds
+    at once)`` of the built kernel with ``g`` query heads per KV head at
+    head dim ``d``."""
+    smem, resident = ctypes.c_int(), ctypes.c_int()
+    _build.check(_lib().bddt_flash_decode_describe(
+        g, d, ctypes.byref(smem), ctypes.byref(resident)),
+        "flash_decode occupancy")
+    return smem.value, resident.value
 
 
 def flash_decode_plain(q, k, v, scale: float):
@@ -75,7 +103,8 @@ def flash_decode(q, k, v, scale: float | None = None, bk: int = 512):
     CPU, one kernel launch on CUDA (float32, contiguous, 16-byte aligned,
     D in :data:`SUPPORTED_HEAD_DIMS`, at most :data:`MAX_GROUP` query
     heads per KV head).  ``bk = min(bk, S)`` must divide S, the
-    reference's block contract; the kernel itself splits S by warps."""
+    reference's block contract; the kernel splits S across the blocks of
+    a cluster as :func:`split` says."""
     _check_shapes(q, k, v, bk)
     b, hq, d = q.shape
     _, hkv, s, _ = k.shape
@@ -101,7 +130,7 @@ def flash_decode(q, k, v, scale: float | None = None, bk: int = 512):
     lse = torch.empty((b, hq), dtype=torch.float32, device=q.device)
     rc = _lib().bddt_flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), b, hq, hkv, s, d, scale,
+        lse.data_ptr(), b, hq, hkv, s, d, split(s)[1], scale,
         _build.stream_handle(q.device))
     _build.check(rc, "flash_decode")
     flash_decode.launches += 1

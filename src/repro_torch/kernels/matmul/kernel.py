@@ -7,15 +7,17 @@ fused wave grid; here one launch serves a whole wave group, with the task
 axis as the grid's outermost axis (``csrc/matmul.cu``).
 
 Bound on an H100 (SXM, 700 W): memory at both waves.  The matmul app's
-wave (256 tasks of 64^3 f32) moves 16.8 MB for 134 MFLOP, about 5 us of
-memory against 2 us of FP32 arithmetic; its kernel stages 64x16 slices
-of both operands in shared memory, keeps a 4x4 register tile per thread
-and multiplies in FP32 FFMA.  The Cholesky update's wave (120 tasks of
-128^3) moves 31.5 MB, 9.4 us; its kernel streams 32-deep slices through a
-three-stage ``cp.async`` ring into 64x128 output tiles and multiplies on
-the tensor cores as 3xTF32 (each operand split into a tf32 high part and
-a tf32 remainder, three ``mma.sync`` products summed in f32), which keeps
-f32-level accuracy where plain TF32 would miss the reference's 1e-4.
+wave (256 tasks of 64^3 f32) moves 16.8 MB, 5.0 us; the Cholesky update's
+wave (120 tasks of 128^3) 31.5 MB, 9.4 us.  One kernel body serves both:
+32-deep slices of the operands stream through a three-stage ``cp.async``
+ring (at K <= 64 the whole depth is in flight before the first product)
+and the products run on the tensor cores as 3xTF32 (each operand split
+into a tf32 high part and a tf32 remainder, three ``mma.sync`` products
+summed in f32), which keeps f32-level accuracy where plain TF32 would
+miss the reference's 1e-4.  The GEMM reads b in its own (K,N) layout, and
+reads c's tile into registers while the operands load; the product is
+accumulated from zero and added to c, the reference's order.  Its blocks
+are 64 x 64 outputs; the update's 64 x 128.
 
 Each wrapper runs its plain version (``ref.py``) for tensors on the CPU
 and launches the kernel for tensors on a CUDA device, and counts the

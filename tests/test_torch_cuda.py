@@ -12,7 +12,8 @@ tensors on the card, at the reference's tolerances (1e-4 for the GEMM
 and the tile update, 1e-6 for the halo stencil, 2e-5 for flash decode,
 rtol 1e-5 / atol 1e-3 for Black-Scholes, 2e-5 in f32 and 2e-2 in bf16
 for flash attention), and the machine code of the tensor-core kernels
-is read for their ``HGMMA``, ``UTMALDG`` and tf32 ``HMMA`` instructions;
+is read for their ``HGMMA``, ``UTMALDG`` and tf32 ``HMMA`` instructions
+(the GEMM and the tile update both);
 the app tests drive the wave backend end to end and check that the
 registered kernels launched, the serving tests drive the host executor
 on the card, and the LLM test counts one flash-attention launch per layer
@@ -46,7 +47,8 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,m,k,nn", [(256, 64, 64, 64), (3, 70, 33, 129),
-                                      (120, 128, 128, 128)])
+                                      (120, 128, 128, 128), (16, 32, 64, 64),
+                                      (2, 64, 36, 250)])
 def test_cuda_matmul_matches_plain(cuda_device, n, m, k, nn):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     a, b, c = (torch.randn(s, generator=g, device=cuda_device)
@@ -57,6 +59,26 @@ def test_cuda_matmul_matches_plain(cuda_device, n, m, k, nn):
     assert mm_kernel.matmul_batched.launches == before + 1
     torch.testing.assert_close(got, mm_kernel.matmul_batched_plain(a, b, c),
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["a", "b", "c"])
+def test_cuda_matmul_takes_unaligned_views(cuda_device, which):
+    """A contiguous view 4 bytes past a 16-byte boundary runs the 4-byte
+    copies and scalar accesses of c and out."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    shapes = {"a": (4, 64, 64), "b": (4, 64, 64), "c": (4, 64, 64)}
+    xs = {}
+    for name, shape in shapes.items():
+        numel = shape[0] * shape[1] * shape[2]
+        flat = torch.randn(numel + 1, generator=g, device=cuda_device)
+        xs[name] = (flat[1:] if name == which else flat[:-1]).view(shape)
+    assert xs[which].data_ptr() % 16 == 4
+    got = mm_kernel.matmul_batched(xs["a"], xs["b"], xs["c"])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got, mm_kernel.matmul_batched_plain(xs["a"], xs["b"], xs["c"]),
+        rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda
@@ -141,6 +163,10 @@ def test_cuda_sequential_and_staged_kernels_agree(cuda_device):
     (3, 6, 2, 77, 64),            # G = 3, ragged S
     (2, 8, 2, 1000, 32),
     (1, 32, 8, 4096, 128),        # Mistral-NeMo-12B's GQA width
+    (1, 1, 1, 1, 128),            # S = 1: one key, fifteen empty blocks
+    (2, 2, 1, 33, 128),           # fewer keys than blocks x a stage
+    (2, 16, 2, 300, 64),          # G = 8 at D 64
+    (8, 32, 8, 8192, 128),        # B x Hkv = 64 clusters at S 8,192
 ])
 def test_cuda_flash_decode_matches_plain(cuda_device, b, hq, hkv, s, d):
     g = torch.Generator(device=cuda_device).manual_seed(3)
@@ -154,6 +180,53 @@ def test_cuda_flash_decode_matches_plain(cuda_device, b, hq, hkv, s, d):
     wo, wl = fd_kernel.flash_decode_plain(q, k, v, d ** -0.5)
     torch.testing.assert_close(o, wo, rtol=2e-5, atol=2e-5)
     torch.testing.assert_close(lse, wl, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_decode_serve_shape_is_one_launch(cuda_device):
+    """The serve path's per-task call (q 1x1x128 against one 512-row KV
+    tile) launches one kernel, split over a 16-block cluster of 32 keys a
+    block, which the card can hold."""
+    from torch.autograd import DeviceType
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    q = torch.randn((1, 1, 128), generator=g, device=cuda_device)
+    k, v = (torch.randn((1, 1, 512, 128), generator=g, device=cuda_device)
+            for _ in range(2))
+    fd_kernel.flash_decode(q, k, v)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    before = fd_kernel.flash_decode.launches
+    with torch.profiler.profile(activities=acts) as prof:
+        fd_kernel.flash_decode(q, k, v)
+        torch.cuda.synchronize()
+    assert fd_kernel.flash_decode.launches == before + 1
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "flash_decode" in kernels[0], kernels
+    assert fd_kernel.split(512) == (16, 32)
+    assert fd_kernel.occupancy(1, 128)[1] >= 1
+
+
+@pytest.mark.cuda
+def test_cuda_flash_decode_refuses_a_split_that_leaves_keys_out(cuda_device):
+    """The wrapper passes the keys per block (``split``) to the kernel,
+    whose entry refuses a range that would leave keys out."""
+    q = torch.zeros((1, 1, 128), device=cuda_device)
+    k = torch.zeros((1, 1, 512, 128), device=cuda_device)
+    o, lse = torch.empty_like(q), torch.empty((1, 1), device=cuda_device)
+    lib = fd_kernel._lib()
+
+    def call(keys_per_block):
+        return lib.bddt_flash_decode(
+            q.data_ptr(), k.data_ptr(), k.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), 1, 1, 1, 512, 128, keys_per_block, 1.0,
+            _build.stream_handle(q.device))
+
+    cs, keys = fd_kernel.split(512)
+    assert call(keys) == 0
+    assert call(keys - 1) != 0 and (keys - 1) * cs < 512
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
@@ -312,10 +385,11 @@ def test_cuda_flash_attention_dispatches_by_dtype(cuda_device, dtype,
 @pytest.mark.parametrize("source", sorted(_build.TENSOR_CORE_SASS))
 def test_cuda_kernels_use_the_tensor_cores(cuda_device, source):
     """The built machine code: wgmma (HGMMA) fed by TMA (UTMALDG) in the
-    bf16 flash-attention kernel, tf32 tensor-core products in the tile
-    update."""
-    counts = _build.sass_counts(source, *_build.TENSOR_CORE_SASS[source])
-    assert all(n > 0 for n in counts.values()), counts
+    bf16 flash-attention kernel, tf32 tensor-core products in the GEMM and
+    the tile update."""
+    for function, patterns in _build.TENSOR_CORE_SASS[source].items():
+        counts = _build.sass_counts(source, function, patterns)
+        assert all(n > 0 for n in counts.values()), (function, counts)
 
 
 @pytest.mark.cuda

@@ -15,10 +15,20 @@ tolerances without a card:
   into tf32 hi and lo parts, ``a_lo b_hi^T + a_hi b_lo^T + a_hi b_hi^T``
   in f32, subtracted from c.  Held against ``tile_update_pallas`` in
   interpret mode at 1e-4, where one tf32 product alone misses.
+* ``matmul_batched`` (the same kernel body, b in its (K, N) layout): the
+  3xTF32 product accumulated from zero, then added to c.  Held against
+  ``matmul_pallas`` in interpret mode at 1e-4, where plain TF32 misses.
+* ``flash_decode`` (``csrc/flash_decode.cu``, S split across a cluster):
+  each warp's online softmax over its 8-key chunks of its block's range,
+  the warps' partials merged into the block's and the blocks' into the
+  cluster's by the log-sum-exp rule, with the kernel's ranges (short and
+  empty ones included).  Held against ``flash_decode_pallas`` in
+  interpret mode at 2e-5.
 
 The models live here, not on any path.  Also here: the build's library
-name follows the shared headers, the SASS counter's parsing, and the
-flash-attention wrapper's choice of kernel by dtype.
+name follows the shared headers, the SASS counter's and the compiler
+report's parsing, and the flash-attention wrapper's choice of kernel by
+dtype.
 """
 import math
 import shutil
@@ -31,9 +41,11 @@ import torch
 import jax.numpy as jnp
 
 from repro.kernels.flash_attention import kernel as ref_fa_kernel
+from repro.kernels.flash_decode import kernel as ref_fd_kernel
 from repro.kernels.matmul import kernel as ref_mm_kernel
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_decode import kernel as fd_kernel
 
 _KEY_TILE = 64          # keys per tile of the bf16 kernel
 _MASKED = -1e30
@@ -203,6 +215,130 @@ def test_3xtf32_model_matches_pallas(n, m, k, nn):
 
 
 # ---------------------------------------------------------------------------
+# 3xTF32 GEMM
+def gemm_3xtf32_model(a, b, c, terms=3):
+    """``c + a b`` as the GEMM kernel computes it: b in its (K, N) layout,
+    the product accumulated from zero (the small terms first, each exact in
+    f32), then added to c.  ``terms=1`` is plain TF32."""
+    a_hi, b_hi = tf32(a), tf32(b)
+    a_lo, b_lo = tf32(a - a_hi), tf32(b - b_hi)
+    prod = a_hi @ b_hi
+    if terms == 3:
+        prod = (a_lo @ b_hi + a_hi @ b_lo) + prod
+    return c + prod
+
+
+@pytest.mark.parametrize("n,m,k,nn", [(16, 64, 64, 64), (5, 33, 70, 65)])
+def test_gemm_3xtf32_model_matches_pallas(n, m, k, nn):
+    """3xTF32 with b read as (K, N) holds the reference's 1e-4 at the
+    matmul app's 64^3 tiles and at an odd shape; plain TF32 misses it at
+    both (K 64 and 70)."""
+    rng = np.random.default_rng(24)
+    a, b, c = (_randn(rng, *s) for s in ((n, m, k), (n, k, nn), (n, m, nn)))
+    ta, tb, tc = (torch.from_numpy(x) for x in (a, b, c))
+    got = gemm_3xtf32_model(ta, tb, tc)
+    one = gemm_3xtf32_model(ta, tb, tc, terms=1)
+    want = np.stack([np.asarray(ref_mm_kernel.matmul_pallas(
+        jnp.asarray(a[t]), jnp.asarray(b[t]), jnp.asarray(c[t]),
+        interpret=True)) for t in range(n)])
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    assert not np.allclose(one.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# flash decode split across a cluster
+def _merge(parts):
+    """The log-sum-exp merge of unnormalised partials ``(m, l, acc)``,
+    leaving out the parts that saw no key (``m = -inf``)."""
+    big = torch.stack([m for m, _, _ in parts]).amax(0)
+    lsum = torch.zeros_like(big)
+    num = torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:
+        e = torch.where(m == -torch.inf, torch.zeros_like(m),
+                        torch.exp(m - big))
+        lsum = lsum + l * e
+        num = num + acc * e[..., None]
+    return big, lsum, num
+
+
+def split_decode_model(q, k, v, scale):
+    """``(o, lse)`` as the cluster kernel computes them: block r of the
+    cluster takes its range of keys (``fd_kernel.split``), warp w of the
+    block its 8 keys of every 32-key stage of that range with its own
+    online softmax, then the warps merge into the block and the blocks
+    into the cluster."""
+    b, hq, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    g = hq // hkv
+    cs, rng = fd_kernel.split(s)
+    kb, kw = fd_kernel.KEYS_PER_STAGE, fd_kernel.WARP_KEYS
+    qg = q.reshape(b, hkv, g, d)
+    blocks = []
+    for r in range(cs):
+        lo, hi = min(s, r * rng), min(s, r * rng + rng)
+        warps = []
+        for w in range(kb // kw):
+            m = torch.full((b, hkv, g), -torch.inf)
+            l = torch.zeros((b, hkv, g))
+            acc = torch.zeros((b, hkv, g, d))
+            for key0 in range(lo + w * kw, hi, kb):
+                kc = k[:, :, key0:min(key0 + kw, hi)]
+                vc = v[:, :, key0:min(key0 + kw, hi)]
+                sc = torch.einsum("bhgd,bhtd->bhgt", qg, kc) * scale
+                m_new = torch.maximum(m, sc.amax(-1))
+                alpha = torch.exp(m - m_new)
+                p = torch.exp(sc - m_new[..., None])
+                l = l * alpha + p.sum(-1)
+                acc = acc * alpha[..., None] + torch.einsum(
+                    "bhgt,bhtd->bhgd", p, vc)
+                m = m_new
+            warps.append((m, l, acc))
+        blocks.append(_merge(warps))
+    big, lsum, num = _merge(blocks)
+    safe = torch.where(lsum == 0, torch.ones_like(lsum), lsum)
+    o = torch.where(lsum[..., None] == 0, torch.zeros_like(num),
+                    num / safe[..., None])
+    lse = torch.where(lsum == 0, torch.full_like(lsum, -1e30),
+                      big + torch.log(safe))
+    return o.reshape(b, hq, d), lse.reshape(b, hq)
+
+
+def test_split_ranges():
+    """A block's range is whole 32-key stages; short and empty ranges
+    occur."""
+    assert fd_kernel.split(512) == (16, 32)        # the serve path's tile
+    assert fd_kernel.split(32768) == (16, 2048)    # the decode width's S
+    for s in (1, 33, 200, 512):
+        assert fd_kernel.split(s) == (16, 32)
+    assert fd_kernel.split(513) == (16, 64)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,bk,empty", [
+    (1, 1, 1, 512, 128, 512, 0),   # the serve path's per-task shape
+    (1, 1, 1, 200, 128, 200, 9),   # a short last range and empty ones
+    (3, 6, 2, 77, 64, 77, 13),     # G = 3, ragged S
+    (1, 1, 1, 1, 128, 1, 15),      # S = 1 (bk = S): fifteen empty blocks
+    (2, 16, 2, 33, 32, 33, 14),    # G = 8, fewer keys than blocks
+    (1, 4, 1, 1000, 64, 200, 0),   # G = 4, two stages a block, ragged
+])
+def test_split_decode_model_matches_pallas(b, hq, hkv, s, d, bk, empty):
+    cs, rng = fd_kernel.split(s)
+    assert sum(r * rng >= s for r in range(cs)) == empty
+    rs = np.random.default_rng(25)
+    q, k, v = (_randn(rs, *sh) for sh in ((b, hq, d), (b, hkv, s, d),
+                                          (b, hkv, s, d)))
+    want_o, want_lse = ref_fd_kernel.flash_decode_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), bk=bk,
+        interpret=True)
+    o, lse = split_decode_model(*(torch.from_numpy(x) for x in (q, k, v)),
+                                d ** -0.5)
+    np.testing.assert_allclose(o.numpy(), np.asarray(want_o), rtol=2e-5,
+                               atol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), rtol=2e-5,
+                               atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
 # the build: library names and SASS counts
 def test_library_name_follows_the_shared_headers(tmp_path):
     csrc = tmp_path / "csrc"
@@ -235,6 +371,10 @@ _DUMP = """
 \t\tFunction : _ZN4anon25tile_update_3xtf32_kernelILb1EEEv
 \t/*0000*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;
 \t/*0010*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+\t\tFunction : _ZN4anon23tile_gemm_3xtf32_kernelILi64ELb1EEEv
+\t/*0000*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;
+\t/*0010*/                   HMMA.1688.F32.TF32 R8, R8, R12, R8 ;
+\t/*0020*/                   FFMA R1, R2, R3, R1 ;
 """
 
 
@@ -246,9 +386,40 @@ def test_sass_counts_reads_only_the_named_kernel(monkeypatch, source):
     monkeypatch.setattr(_build, "_cuobjdump", lambda: "cuobjdump")
     monkeypatch.setattr(subprocess, "run", lambda *a, **kw:
                         subprocess.CompletedProcess(a, 0, stdout=_DUMP))
-    function, patterns = _build.TENSOR_CORE_SASS[source]
-    want = {"flash_attention": {"HGMMA": 2, "UTMALDG": 1},
-            "matmul": {"HMMA.TF32": 1}}[source]
-    assert _build.sass_counts(source, function, patterns) == want
+    want = {"flash_attention_bf16_kernel": {"HGMMA": 2, "UTMALDG": 1},
+            "tile_update_3xtf32_kernel": {"HMMA.TF32": 1},
+            "tile_gemm_3xtf32_kernel": {"HMMA.TF32": 2}}
+    kernels = _build.TENSOR_CORE_SASS[source]
+    assert kernels and set(kernels) <= set(want)
+    for function, patterns in kernels.items():
+        assert _build.sass_counts(source, function, patterns) == \
+            want[function]
+        with pytest.raises(RuntimeError, match="no kernel"):
+            _build.sass_counts(source, "no_such_kernel", patterns)
+
+
+_PTXAS_LOG = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN4anon23tile_gemm_3xtf32_kernelILi64ELb1EEEv' for 'sm_90a'
+ptxas info    : Function properties for _ZN4anon23tile_gemm_3xtf32_kernelILi64ELb1EEEv
+    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 126 registers, used 1 barriers, 380 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN4anon25tile_update_3xtf32_kernelILb1EEEv' for 'sm_90a'
+ptxas info    : Function properties for _ZN4anon25tile_update_3xtf32_kernelILb1EEEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 121 registers, 1024 bytes smem, 380 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_reads_only_the_named_kernel(monkeypatch, tmp_path):
+    lib = tmp_path / "matmul-0.so"
+    lib.with_suffix(".log").write_text(_PTXAS_LOG)
+    monkeypatch.setattr(_build, "build_all", lambda names: {
+        n: lib for n in names})
+    assert _build.ptxas_report("matmul", "tile_gemm_3xtf32_kernel") == {
+        "_ZN4anon23tile_gemm_3xtf32_kernelILi64ELb1EEEv": dict(
+            registers=126, spill_stores=8, spill_loads=4, smem=0)}
+    assert _build.ptxas_report("matmul", "tile_update") == {
+        "_ZN4anon25tile_update_3xtf32_kernelILb1EEEv": dict(
+            registers=121, spill_stores=0, spill_loads=0, smem=1024)}
     with pytest.raises(RuntimeError, match="no kernel"):
-        _build.sass_counts(source, "no_such_kernel", patterns)
+        _build.ptxas_report("matmul", "no_such_kernel")
