@@ -65,12 +65,29 @@ Phases, each of which must pass (any failure exits non-zero):
    ms per step, tokens/s as the reference's ``main`` counts them, peak
    device memory and the device's idle share over a second, profiled
    ``generate``.
-7. Parity: at a small size, ``executor="sequential"`` against staged with
+7. Depman (main path 1 under the sharded dependence managers): the five
+   apps at the §4.2 sizes, staged with the wave kernels,
+   ``dep_manager="sharded"`` over 4 homes with 4-line envelopes, pump
+   ``sync`` then ``threaded``.  Each run must reproduce phase 4's wave
+   schedule (spawn orders per wave), ``deps_found``, ``blocks_walked``,
+   waves, groups, wave-kernel dispatches and every kernel's launches;
+   both pumps must put the same envelopes and lines on the rings.
+   ``[depman]`` lines give wall, spawn, barrier and pump seconds and the
+   wire counts.  Then matmul and Cholesky on the host executor under
+   central, sync and threaded, outputs within the parity tolerance.
+8. Fuzz: the 60 seeds of ``repro_torch.fuzz_graphs`` on sequential (the
+   oracle), staged, host, staged with the kernels, and staged under the
+   sharded managers with each pump: outputs within 1e-4 (the sharded
+   runs bit-identical to central's), equal dependence counts across the
+   staged paths, equal wire counts across the pumps, and one GEMM launch
+   (8x8x8 tiles) per ``_gemm`` wave dispatch; one ``[fuzz]`` line.
+9. Parity: at a small size, ``executor="sequential"`` against staged with
    the wave kernels and against host, all five apps, within each app's
    tolerance.
 
-Then one JSON line of kernel results, the card line again, and last
-``{"ok": true, "device": {...}}``.
+Then one JSON line of kernel results (each row's ``launches`` from phase
+4, 5 or 6, and in ``launches_by_path`` those of phases 7 and 8), the card
+line again, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -442,39 +459,73 @@ def ptxas_phase() -> None:
             print(f"[ptxas] {kernel}: {json.dumps(info)}", flush=True)
 
 
-def app_phase(dev) -> dict[str, int]:
-    """Main path 1: the five apps at §4.2 sizes on the wave kernels."""
-    import torch
-    from repro_torch import RuntimeConfig, TaskRuntime, apps
+def record_waves(rt) -> list:
+    """Log the staged wave schedule of ``rt``: for each barrier, the spawn
+    orders of each wave's tasks (task ids recycle, spawn orders do not)."""
+    log: list = []
+    build = rt._exec._wavefronts
+
+    def recorded(tasks):
+        waves = build(tasks)
+        log.append([[td.spawn_order for td in w] for w in waves])
+        return waves
+
+    rt._exec._wavefronts = recorded
+    return log
+
+
+APP_NAMES = ("black_scholes", "matmul", "fft", "jacobi", "cholesky")
+# what the sharded runs must reproduce of the central run, count for count
+SCHEDULE_FIELDS = ("tasks_spawned", "deps_found", "blocks_walked", "waves",
+                   "grouped_dispatches", "kernel_dispatches",
+                   "kernel_fallbacks")
+
+
+def app_wrappers() -> tuple[dict, dict]:
+    """The wave-registry kernels (launched once per wave-kernel dispatch),
+    and those plus Black-Scholes, which launches through its operator's
+    vmap rule once per staged group of _price tasks (non_rectangular for
+    the registry)."""
     from repro_torch.kernels.black_scholes import kernel as bs
     from repro_torch.kernels.jacobi import kernel as jac
     from repro_torch.kernels.matmul import kernel as mm
-    from repro_torch.obs import InMemoryTracker
-
-    # the wave-registry kernels, launched once per wave-kernel dispatch
     wave = {"matmul_batched": mm.matmul_batched,
             "tile_update_batched": mm.tile_update_batched,
             "jacobi_halo_batched": jac.jacobi_halo_batched}
-    # Black-Scholes launches through its operator's vmap rule, once per
-    # staged group of _price tasks (non_rectangular for the registry)
-    wrappers = {**wave, "black_scholes": bs.black_scholes}
+    return wave, {**wave, "black_scholes": bs.black_scholes}
+
+
+def app_phase(dev) -> tuple[dict[str, int], dict[str, dict]]:
+    """Main path 1: the five apps at §4.2 sizes on the wave kernels.
+    Returns the launches per kernel, and per app the central run's wave
+    schedule, counts, launches and times (what ``depman_phase`` holds the
+    sharded managers to)."""
+    import torch
+    from repro_torch import RuntimeConfig, TaskRuntime, apps
+    from repro_torch.obs import InMemoryTracker
+    from repro_torch.profile_apps import GCTimer
+
+    wave, wrappers = app_wrappers()
     must_launch = {"matmul": "matmul_batched",
                    "cholesky": "tile_update_batched",
                    "jacobi": "jacobi_halo_batched",
                    "black_scholes": "black_scholes"}
     total = dict.fromkeys(wrappers, 0)
-    for name in ("black_scholes", "matmul", "fft", "jacobi", "cholesky"):
+    central = {}
+    for name in APP_NAMES:
         trk = InMemoryTracker()
         rt = TaskRuntime(RuntimeConfig(
             executor="staged", kernel_backend="pallas", device=str(dev),
             tracker=trk))
+        schedule = record_waves(rt)
         for w in wrappers.values():
             w.launches = 0
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = apps.APPS[name](rt, **apps.PAPER_SIZES[name])  # self-verifies
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with GCTimer() as gct:
+            t0 = time.perf_counter()
+            out = apps.APPS[name](rt, **apps.PAPER_SIZES[name])
+            torch.cuda.synchronize()          # the app self-verifies
+            wall = time.perf_counter() - t0
         launches = {k: w.launches for k, w in wrappers.items()}
         rt.shutdown()
         stats = rt.stats()
@@ -493,7 +544,7 @@ def app_phase(dev) -> dict[str, int]:
             app=name, size=apps.PAPER_SIZES[name], wall_s=wall,
             spawn_s=stats.spawn_time_s, barrier_s=stats.barrier_time_s,
             wait_s=stats.wait_time_s, dispatch_s=dispatch_s,
-            tasks=stats.tasks_spawned, waves=stats.waves,
+            gc_s=gct.seconds, tasks=stats.tasks_spawned, waves=stats.waves,
             grouped_dispatches=stats.grouped_dispatches,
             kernel_dispatches=stats.kernel_dispatches,
             kernel_fallbacks=stats.kernel_fallbacks,
@@ -507,7 +558,174 @@ def app_phase(dev) -> dict[str, int]:
                   f"{name}: {must_launch[name]} never launched")
         for k, v in launches.items():
             total[k] += v
+        central[name] = dict(schedule=schedule, launches=launches,
+                             wall_s=wall, spawn_s=stats.spawn_time_s,
+                             barrier_s=stats.barrier_time_s,
+                             gc_s=gct.seconds,
+                             **{f: getattr(stats, f)
+                                for f in SCHEDULE_FIELDS})
+    return total, central
+
+
+def depman_phase(dev, central: dict[str, dict]) -> dict[str, int]:
+    """Main path 1 under the home-sharded dependence managers: the five
+    apps at §4.2 sizes, staged with the wave kernels, ``dep_manager=
+    "sharded"`` over 4 homes with 4-line envelopes, pump ``sync`` then
+    ``threaded``.  Each run must reproduce the central run's wave
+    schedule, counts and launches; the two pumps must put the same
+    envelopes and lines on the rings.  Then matmul and Cholesky on the
+    host executor under central, sync and threaded, outputs within
+    ``PARITY_TOL`` of central's.  Returns the launches per kernel."""
+    import torch
+    from repro_torch import RuntimeConfig, TaskRuntime, apps
+    from repro_torch.profile_apps import GCTimer
+
+    _, wrappers = app_wrappers()
+    total = dict.fromkeys(wrappers, 0)
+    sharded = dict(dep_manager="sharded", n_controllers=4,
+                   dep_batch_lines=4)
+    for name in APP_NAMES:
+        wire = {}
+        for pump in ("sync", "threaded"):
+            rt = TaskRuntime(RuntimeConfig(
+                executor="staged", kernel_backend="pallas", device=str(dev),
+                dep_pump=pump, **sharded))
+            schedule = record_waves(rt)
+            for w in wrappers.values():
+                w.launches = 0
+            torch.cuda.synchronize()
+            with GCTimer() as gct:
+                t0 = time.perf_counter()
+                apps.APPS[name](rt, **apps.PAPER_SIZES[name])
+                torch.cuda.synchronize()      # the app self-verifies
+                wall = time.perf_counter() - t0
+            launches = {k: w.launches for k, w in wrappers.items()}
+            idle_waits = rt.analyzer.idle_waits
+            rt.shutdown()
+            st = rt.stats()
+            ref = central[name]
+            wire[pump] = (st.dep_messages, st.dep_batches, st.dep_lines)
+            print("[depman] " + json.dumps(dict(
+                app=name, executor="staged", pump=pump, homes=4,
+                batch_lines=4, wall_s=wall, spawn_s=st.spawn_time_s,
+                barrier_s=st.barrier_time_s, gc_s=gct.seconds,
+                pump_wall_s=st.pump_wall_s, pump_idle_waits=idle_waits,
+                dep_messages=st.dep_messages, dep_batches=st.dep_batches,
+                dep_lines=st.dep_lines,
+                manager_admissions=st.manager_admissions,
+                tasks=st.tasks_spawned, waves=st.waves,
+                central_wall_s=ref["wall_s"],
+                central_spawn_s=ref["spawn_s"],
+                central_barrier_s=ref["barrier_s"],
+                central_gc_s=ref["gc_s"], launches=launches)),
+                flush=True)
+            check(schedule == ref["schedule"],
+                  f"depman {name} {pump}: wave schedule differs from "
+                  f"central's")
+            for fld in SCHEDULE_FIELDS:
+                check(getattr(st, fld) == ref[fld],
+                      f"depman {name} {pump}: {fld} {getattr(st, fld)} != "
+                      f"central's {ref[fld]}")
+            check(launches == ref["launches"],
+                  f"depman {name} {pump}: launches {launches} != "
+                  f"central's {ref['launches']}")
+            check(sum(st.manager_admissions) >= st.tasks_spawned,
+                  f"depman {name} {pump}: fewer admissions than tasks")
+            for k, v in launches.items():
+                total[k] += v
+        check(wire["sync"] == wire["threaded"],
+              f"depman {name}: wire counts differ across pumps {wire}")
+
+    # the per-home ready deques with real workers: the host executor
+    for name in ("matmul", "cholesky"):
+        outs = {}
+        for label, cfg in (("central", {}),
+                           ("sync", dict(dep_pump="sync", **sharded)),
+                           ("threaded", dict(dep_pump="threaded",
+                                             **sharded))):
+            rt = TaskRuntime(RuntimeConfig(executor="host",
+                                           device=str(dev), **cfg))
+            try:
+                torch.cuda.synchronize()
+                with GCTimer() as gct:
+                    t0 = time.perf_counter()
+                    out = apps.APPS[name](rt, **apps.PAPER_SIZES[name])
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                idle_waits = rt.analyzer.idle_waits if cfg else None
+            finally:
+                rt.shutdown()
+            st = rt.stats()
+            full = out.gather()
+            outs[label] = torch.tril(full) if name == "cholesky" else full
+            print("[depman] " + json.dumps(dict(
+                app=name, executor="host", pump=label, wall_s=wall,
+                spawn_s=st.spawn_time_s, barrier_s=st.barrier_time_s,
+                gc_s=gct.seconds,
+                pump_wall_s=st.pump_wall_s, pump_idle_waits=idle_waits,
+                dep_messages=st.dep_messages, dep_batches=st.dep_batches,
+                dep_lines=st.dep_lines,
+                manager_admissions=st.manager_admissions,
+                tasks=st.tasks_spawned, worker_tasks=st.worker_tasks)),
+                flush=True)
+        rtol, atol = PARITY_TOL[name]
+        for label in ("sync", "threaded"):
+            gap = (outs[label] - outs["central"]).abs().max().item()
+            print(f"[depman] {name} host {label} against central: "
+                  f"max_abs_diff={gap} rtol={rtol} atol={atol}", flush=True)
+            check(bool(torch.allclose(outs[label], outs["central"],
+                                      rtol=rtol, atol=atol)),
+                  f"depman {name} host {label}: output differs from "
+                  f"central's by {gap}")
     return total
+
+
+def fuzz_phase(dev) -> int:
+    """The 60-seed differential corpus (``repro_torch.fuzz_graphs``) on
+    the card, the sequential path as the oracle: staged, host, staged +
+    kernels, staged + sharded sync and threaded.  Outputs within
+    ``fuzz_graphs.CARD_TOL`` of the oracle (sharded bit-identical to central), the
+    dependence counts equal across the staged paths, equal wire counts
+    across the pumps, and the GEMM kernel launched once per ``_gemm``
+    wave dispatch (8x8x8 tiles).  Returns its launches."""
+    import torch
+    from repro_torch import fuzz_graphs
+    from repro_torch.kernels.matmul import kernel as mm
+
+    gaps = dict.fromkeys(fuzz_graphs.PATHS, 0.0)
+    totals = dict(tasks=0, deps_found=0, blocks_walked=0, dep_messages=0,
+                  dep_batches=0, dep_lines=0, gemm_dispatches=0,
+                  kernel_fallbacks=0)
+    mm.matmul_batched.launches = 0
+    t0 = time.perf_counter()
+    for seed in fuzz_graphs.SEEDS:
+        runs = fuzz_graphs.compare_paths(seed, str(dev))
+        oracle = runs["sequential"][0]
+        for path, (out, _) in runs.items():
+            gaps[path] = max(gaps[path], fuzz_graphs.max_gap(out, oracle))
+        staged = runs["staged"][1]
+        kernels = runs["staged+pallas"][1]
+        sync = runs["staged+sharded-sync"][1]
+        totals["tasks"] += staged.tasks_spawned
+        totals["deps_found"] += staged.deps_found
+        totals["blocks_walked"] += staged.blocks_walked
+        totals["gemm_dispatches"] += kernels.kernel_dispatches
+        totals["kernel_fallbacks"] += kernels.kernel_fallbacks
+        for fld in ("dep_messages", "dep_batches", "dep_lines"):
+            totals[fld] += getattr(sync, fld)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = mm.matmul_batched.launches
+    print("[fuzz] " + json.dumps(dict(
+        seeds=len(fuzz_graphs.SEEDS), paths=list(fuzz_graphs.PATHS),
+        tile=fuzz_graphs.TILE, wall_s=wall, tol=fuzz_graphs.CARD_TOL,
+        max_abs_gap_to_sequential=gaps, matmul_batched_launches=launches,
+        **totals)), flush=True)
+    check(launches > 0, "fuzz: matmul_batched never launched")
+    check(launches == totals["gemm_dispatches"],
+          f"fuzz: {launches} matmul_batched launches but "
+          f"{totals['gemm_dispatches']} _gemm wave dispatches")
+    return launches
 
 
 def _idle_share(prof, span: str):
@@ -816,11 +1034,16 @@ def main() -> int:
     ptxas_phase()
 
     kernels = kernel_phase(dev)
-    launches = app_phase(dev)
+    launches, central = app_phase(dev)
     launches["flash_decode"] = serve_phase(dev)
     launches["flash_attention"] = llm_phase(dev, card)
+    by_path = {"depman": depman_phase(dev, central),
+               "fuzz": {"matmul_batched": fuzz_phase(dev)}}
     for row in kernels:
         row["launches"] = launches[row["name"]]
+        row["launches_by_path"] = {
+            path: n[row["name"]] for path, n in by_path.items()
+            if row["name"] in n}
     parity_phase(dev)
 
     print(json.dumps({"kernels": kernels}))

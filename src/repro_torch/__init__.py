@@ -24,8 +24,9 @@ from .core import (AccessMode, BlockArray, DEP_MANAGERS, DEP_PUMPS,
                    Executor, In, InOut, KERNEL_BACKENDS, KernelBackend,
                    Out, PLACEMENTS, PlacementKind, Region, RuntimeConfig,
                    RuntimeStats, SCHEDULING_POLICIES, STATS_SCHEMA,
-                   SchedulingPolicy, TaskFuture, TaskRuntime,
-                   current_runtime, register_wave_kernel, task, wait_on)
+                   SchedulingPolicy, ShardedDependenceManager, TaskFuture,
+                   TaskRuntime, current_runtime, register_wave_kernel, task,
+                   wait_on)
 
 __all__ = [
     # entry points
@@ -38,6 +39,6 @@ __all__ = [
     "ExecutorKind", "DepManagerKind", "DepPumpKind", "SchedulingPolicy",
     "PlacementKind", "KernelBackend", "EXECUTORS", "DEP_MANAGERS",
     "DEP_PUMPS", "SCHEDULING_POLICIES", "PLACEMENTS", "KERNEL_BACKENDS",
-    # extension surface
-    "Executor", "register_wave_kernel",
+    # extension surfaces
+    "Executor", "ShardedDependenceManager", "register_wave_kernel",
 ]

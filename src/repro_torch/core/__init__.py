@@ -6,6 +6,7 @@ module, with tiles as torch tensors on one device:
 * :mod:`api`        — the OmpSs front-end: @task footprints, futures, config
 * :mod:`blocks`     — the custom block allocator (BlockArray / Region / In-Out-InOut)
 * :mod:`deps`       — block-level dynamic dependence analysis (BDDT)
+* :mod:`depman`     — home-sharded dependence managers over MPB channels
 * :mod:`graph`      — task descriptors, descriptor pool, ready/completion queues
 * :mod:`mpb`        — message-passing-buffer SPSC descriptor rings
 * :mod:`scheduler`  — the master's running/polling modes + lazy release
@@ -22,6 +23,7 @@ from .api import (DEP_MANAGERS, DEP_PUMPS, EXECUTORS, KERNEL_BACKENDS,
                   wait_on)
 from .blocks import (AccessMode, BlockArray, In, InOut, Out, Region,
                      coerce_mode)
+from .depman import ShardedDependenceManager
 from .executor import Executor
 from .runtime import TaskRuntime
 from .wavekernel import register_wave_kernel
@@ -39,5 +41,5 @@ __all__ = [
     "PlacementKind", "KernelBackend", "EXECUTORS", "DEP_MANAGERS",
     "DEP_PUMPS", "SCHEDULING_POLICIES", "PLACEMENTS", "KERNEL_BACKENDS",
     # extension surfaces
-    "Executor", "register_wave_kernel",
+    "Executor", "ShardedDependenceManager", "register_wave_kernel",
 ]

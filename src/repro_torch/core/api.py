@@ -228,12 +228,10 @@ def _check_choice(field: str, value, choices: tuple[str, ...]) -> str:
     return value
 
 
-#: executors and managers this slice does not port, and the ROADMAP.md
+#: executors this slice does not port, and the ROADMAP.md
 #: queue 1 item that brings each one; asking for them raises
 #: ``NotImplementedError`` instead of substituting another executor
 UNPORTED = {
-    ("dep_manager", "sharded"):
-        "ROADMAP.md queue 1 item 6 (sharded dependence managers)",
     ("executor", "sim"):
         "ROADMAP.md queue 1 item 7 (sim, cost model and calibration)",
     ("executor", "sharded"):
@@ -260,10 +258,14 @@ class RuntimeConfig:
       depth (§3.2).
     * ``pool_capacity`` — pre-allocated task-descriptor pool (§3.3).
     * ``dep_manager`` — "central" (one master-side
-      ``DependenceAnalyzer``, the paper's §3.3 loop); "sharded" is not
-      ported yet and raises.
+      ``DependenceAnalyzer``, the paper's §3.3 loop) or "sharded" (one
+      ``HomeManager`` per block home behind MPB channels,
+      ``core/depman.py``, ``n_controllers`` homes).
     * ``dep_pump`` / ``dep_batch_lines`` — the sharded manager's pumping
-      and descriptor batching; validated, inert under "central".
+      ("sync": the master services the managers inline; "threaded": one
+      pump thread per home; "auto": threaded iff ``REPRO_DEPMAN_THREADS``
+      is a positive integer) and descriptor batching (MPB lines per
+      envelope); validated, inert under "central".
     * ``policy``      — running-mode scheduling policy (§3.4).
     * ``placement`` / ``n_controllers`` — block -> memory-controller map.
     * ``owner_skew_threshold`` — sharded executor only; validated, inert.

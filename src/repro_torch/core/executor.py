@@ -339,6 +339,9 @@ class StagedExecutor(ExecutorBase):
     # -- wavefront layering ---------------------------------------------------
     def _wavefronts(self, tasks: list[TaskDescriptor]) \
             -> list[list[TaskDescriptor]]:
+        # one builder under either dependence manager: a wave is the set
+        # of zero-indegree tasks in spawn order, so the levels do not
+        # depend on which manager found the edges or holds ready tasks
         indeg = {td: td.deps_remaining for td in tasks}
         frontier = [td for td, d in indeg.items() if d == 0]
         waves = []

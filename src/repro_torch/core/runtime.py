@@ -38,6 +38,7 @@ one tensor per WRITES argument (in argument order).
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from typing import Callable, Sequence
 
@@ -90,7 +91,29 @@ class TaskRuntime:
         self.n_controllers = config.n_controllers
         self.graph = TaskGraph()
         self.pool = DescriptorPool(config.pool_capacity)
-        self.analyzer = DependenceAnalyzer()
+        if config.dep_manager == "sharded":
+            from .depman import ShardedDependenceManager
+            # "auto" resolves here, at construction: threaded iff
+            # REPRO_DEPMAN_THREADS parses as a positive integer (which
+            # also caps the pump-thread count); explicit "sync" /
+            # "threaded" are always honored regardless of environment
+            pump = config.dep_pump
+            if pump == "auto":
+                try:
+                    n_threads = int(os.environ.get(
+                        "REPRO_DEPMAN_THREADS", "0"))
+                except ValueError:
+                    n_threads = 0
+                pump = "threaded" if n_threads > 0 else "sync"
+            self.dep_pump = pump
+            self.analyzer = ShardedDependenceManager(
+                n_managers=config.n_controllers,
+                channel_slots=config.mpb_slots,
+                batch_lines=config.dep_batch_lines,
+                pump=pump)
+        else:
+            self.dep_pump = None
+            self.analyzer = DependenceAnalyzer()
         self.queues = [MPBQueue(w, config.mpb_slots)
                        for w in range(config.n_workers)]
         self.scheduler = MasterScheduler(self.queues, self.graph, self.pool,
@@ -106,6 +129,10 @@ class TaskRuntime:
         self.obs, self._obs_owned = make_tracker(config.tracker)
         self._closed = False
         self.scheduler.obs = self.obs
+        if hasattr(self.analyzer, "register_array"):
+            # sharded dependence manager: emits dep_msg/manager_admit
+            # events through the runtime's tracker like everything else
+            self.analyzer.obs = self.obs
         self._exec: Executor = self._make_executor(config)
         self._exec.obs = self.obs
         self._exec.traffic = self.traffic
@@ -142,6 +169,11 @@ class TaskRuntime:
                              f"on {self.device}")
         assign_homes(ba, self.placement, self.n_controllers)
         ba.traffic = self.traffic
+        register = getattr(self.analyzer, "register_array", None)
+        if register is not None:
+            # sharded dependence manager learns the block -> home map so
+            # footprints route to the owning per-home manager
+            register(ba)
         self._arrays.append(ba)
         return ba
 
@@ -225,6 +257,12 @@ class TaskRuntime:
     def barrier(self) -> None:
         t0 = time.perf_counter()
         self._exec.barrier()
+        quiesce = getattr(self.analyzer, "quiesce", None)
+        if quiesce is not None:
+            # sharded manager: flush buffered release descriptors and
+            # wait out the pump threads so metadata and the batch/line
+            # counters are exact at the barrier
+            quiesce()
         self.barrier_time_s += time.perf_counter() - t0
         assert self.graph.quiescent
 
@@ -233,6 +271,11 @@ class TaskRuntime:
             return
         self._closed = True
         self._exec.shutdown()
+        stop_analyzer = getattr(self.analyzer, "shutdown", None)
+        if stop_analyzer is not None:
+            # quiesces and joins the dependence pump threads, so the
+            # stats emitted below carry final counter values
+            stop_analyzer()
         if self.obs.enabled:
             # the final stats snapshot, in the same schema to_json() emits
             self.obs.emit("stats", stats=self.stats().to_dict())
@@ -293,6 +336,14 @@ class TaskRuntime:
         s.tile_moves = self.traffic.tile_moves
         s.bytes_moved = self.traffic.bytes_moved
         s.bytes_staged = self.traffic.bytes_staged
+        # sharded dependence manager: message traffic + per-manager
+        # admissions (None under the central analyzer)
+        if getattr(self.analyzer, "dep_messages", None) is not None:
+            s.dep_messages = self.analyzer.dep_messages
+            s.dep_batches = self.analyzer.dep_batches
+            s.dep_lines = self.analyzer.dep_lines
+            s.pump_wall_s = self.analyzer.pump_wall_s
+            s.manager_admissions = list(self.analyzer.admissions)
         # serving admission controller (attached by repro_torch.serve)
         if self.admission is not None:
             a = self.admission

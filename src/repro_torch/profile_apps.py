@@ -13,15 +13,22 @@ JSON line per app:
   the trace holds no device events);
 * ``top`` — device time by kernel name, largest first, and
   ``host_top_profiled`` — host self time by operator in the profiled run
-  (inflated by the profiler; read it for proportions only).
+  (inflated by the profiler; read it for proportions only);
+* ``gc_s``/``gc_collections`` — host seconds the timed run spent in
+  Python's cyclic garbage collector, and its collections by generation;
+* with ``--cprofile``, ``host_top_cprofile`` — host functions by their
+  own time in a fourth run under ``cProfile`` (which inflates every
+  Python call: read it for proportions only).
 
 Usage, on a machine with a CUDA device::
 
-    PYTHONPATH=src python -m repro_torch.profile_apps [--app NAME ...]
+    PYTHONPATH=src python -m repro_torch.profile_apps [--app NAME ...] \
+        [--cprofile]
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import time
 
@@ -32,6 +39,31 @@ from . import apps
 from .core import RuntimeConfig, TaskRuntime
 
 
+class GCTimer:
+    """Host seconds spent in Python's cyclic garbage collector while the
+    timer is installed (``with GCTimer() as t: ...; t.seconds``), and the
+    collections by generation."""
+
+    def __init__(self):
+        self.seconds = 0.0
+        self.collections = [0, 0, 0]
+        self._t0 = 0.0
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.seconds += time.perf_counter() - self._t0
+            self.collections[info["generation"]] += 1
+
+    def __enter__(self) -> "GCTimer":
+        gc.callbacks.append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        gc.callbacks.remove(self)
+
+
 def _device_ms(evt) -> float:
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         v = getattr(evt, attr, None)
@@ -40,9 +72,9 @@ def _device_ms(evt) -> float:
     return 0.0
 
 
-def _run(name: str, device: str) -> tuple[float, object]:
+def _run(name: str, device: str, **config) -> tuple[float, object]:
     rt = TaskRuntime(RuntimeConfig(executor="staged", kernel_backend="pallas",
-                                   device=device))
+                                   device=device, **config))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     apps.APPS[name](rt, **apps.PAPER_SIZES[name])     # self-verifies
@@ -52,15 +84,31 @@ def _run(name: str, device: str) -> tuple[float, object]:
     return wall, rt.stats()
 
 
-def profile_app(name: str, device: str = "cuda", top: int = 8) -> dict:
+def profile_app(name: str, device: str = "cuda", top: int = 8,
+                cprofile: bool = False, **config) -> dict:
     """One warm-up run, one timed run, one run under the profiler (whose
-    host overhead would distort the timed run's wall)."""
-    _run(name, device)
-    wall, stats = _run(name, device)
+    host overhead would distort the timed run's wall), and with
+    ``cprofile`` one under ``cProfile``.  ``config`` goes to
+    :class:`RuntimeConfig`."""
+    _run(name, device, **config)
+    with GCTimer() as gct:
+        wall, stats = _run(name, device, **config)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        _run(name, device)
+        _run(name, device, **config)
+    extra = {}
+    if cprofile:
+        import cProfile
+        import pstats
+        prof_c = cProfile.Profile()
+        prof_c.runcall(_run, name, device, **config)
+        st = pstats.Stats(prof_c)
+        rows = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:2 * top]
+        extra["host_top_cprofile"] = [
+            dict(fn=f"{path.rsplit('/', 1)[-1]}:{line}:{fn}", calls=nc,
+                 own_s=tt, cum_s=ct)
+            for (path, line, fn), (_, nc, tt, ct, _) in rows]
     by_name: dict[str, float] = {}
     host: dict[str, float] = {}
     for evt in prof.key_averages():
@@ -75,24 +123,29 @@ def profile_app(name: str, device: str = "cuda", top: int = 8) -> dict:
         return [dict(name=k[:80], ms=v) for k, v in
                 sorted(d.items(), key=lambda kv: -kv[1])[:top]]
 
-    return dict(app=name, size=apps.PAPER_SIZES[name], wall_s=wall,
-                spawn_s=stats.spawn_time_s, barrier_s=stats.barrier_time_s,
-                wait_s=stats.wait_time_s, device_trace=bool(by_name),
+    return dict(app=name, size=apps.PAPER_SIZES[name], config=config,
+                wall_s=wall, spawn_s=stats.spawn_time_s,
+                barrier_s=stats.barrier_time_s, wait_s=stats.wait_time_s,
+                pump_wall_s=stats.pump_wall_s, gc_s=gct.seconds,
+                gc_collections=gct.collections, device_trace=bool(by_name),
                 device_busy_ms=busy,
                 idle_share=1.0 - busy / (wall * 1e3) if by_name else None,
-                top=ranked(by_name), host_top_profiled=ranked(host))
+                top=ranked(by_name), host_top_profiled=ranked(host), **extra)
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--app", action="append", choices=sorted(apps.APPS),
                         help="app to profile (repeatable; default: all)")
+    parser.add_argument("--cprofile", action="store_true",
+                        help="add a run under cProfile (host functions)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         parser.error("needs a CUDA device")
     print(torch.cuda.get_device_name(0), flush=True)
     for name in args.app or list(apps.APPS):
-        print(json.dumps(profile_app(name)), flush=True)
+        print(json.dumps(profile_app(name, cprofile=args.cprofile)),
+              flush=True)
     return 0
 
 

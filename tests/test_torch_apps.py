@@ -176,3 +176,13 @@ def test_wave_kernel_registry_covers_the_three_bodies():
                                    kernel_backend="pallas")) as rt:
         apps.jacobi_app(rt, **SIZES["jacobi"])
         assert rt.stats().kernel_dispatches == 8
+
+
+def test_gc_timer_counts_collections():
+    import gc
+    from repro_torch.profile_apps import GCTimer
+    with GCTimer() as timer:
+        gc.collect()
+    assert timer.collections[2] >= 1
+    assert timer.seconds > 0.0
+    assert timer not in gc.callbacks

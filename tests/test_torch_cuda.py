@@ -17,13 +17,15 @@ is read for their ``HGMMA``, ``UTMALDG`` and tf32 ``HMMA`` instructions
 the app tests drive the wave backend end to end and check that the
 registered kernels launched, the serving tests drive the host executor
 on the card, and the LLM test counts one flash-attention launch per layer
-in one ``generate``.
+in one ``generate``.  The fuzz tests replay a few seeds of the
+differential corpus on the card under the sharded dependence managers
+(both pumps), with ``_gemm``'s groups on the GEMM kernel at 8x8x8.
 """
 import pytest
 import torch
 
 from repro_torch import (RuntimeConfig, TaskRuntime, apps, configs,
-                         serve_lm, task)
+                         fuzz_graphs, serve_lm, task)
 from repro_torch.kernels import _build
 from repro_torch.kernels.black_scholes import kernel as bs_kernel
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -48,7 +50,7 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,m,k,nn", [(256, 64, 64, 64), (3, 70, 33, 129),
                                       (120, 128, 128, 128), (16, 32, 64, 64),
-                                      (2, 64, 36, 250)])
+                                      (2, 64, 36, 250), (6, 8, 8, 8)])
 def test_cuda_matmul_matches_plain(cuda_device, n, m, k, nn):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     a, b, c = (torch.randn(s, generator=g, device=cuda_device)
@@ -433,3 +435,43 @@ def test_cuda_generate_launches_once_per_layer(cuda_device, compute_dtype):
     assert tuple(out.shape) == (2, 4) and out.device.type == "cuda"
     if compute_dtype == "float32":
         assert torch.equal(out.cpu(), on_cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [3, 17, 25, 41])
+def test_cuda_fuzz_seeds_under_sharded_managers(cuda_device, seed):
+    """Every path of the fuzz harness on the card: central and sharded
+    (sync, threaded) bit-identical, the rest within
+    ``fuzz_graphs.CARD_TOL`` (1e-4, the GEMM kernel's) of the sequential
+    oracle; then the kernel path under the threaded pump against
+    central, launch for launch."""
+    assert fuzz_graphs.CARD_TOL == 1e-4
+    fuzz_graphs.compare_paths(seed, str(cuda_device))
+    runs = {}
+    for dm, pump in (("central", "auto"), ("sharded", "threaded")):
+        before = mm_kernel.matmul_batched.launches
+        out, st = fuzz_graphs.run_case(seed, str(cuda_device),
+                                       kernel_backend="pallas",
+                                       dep_manager=dm, dep_pump=pump)
+        runs[dm] = (out, st, mm_kernel.matmul_batched.launches - before)
+    (c_out, c_st, c_n), (s_out, s_st, s_n) = runs["central"], \
+        runs["sharded"]
+    assert c_n == s_n == c_st.kernel_dispatches == s_st.kernel_dispatches > 0
+    for name in c_out:
+        assert (c_out[name] == s_out[name]).all(), name
+    assert (c_st.deps_found, c_st.blocks_walked) == \
+        (s_st.deps_found, s_st.blocks_walked)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("executor", ["staged", "host"])
+@pytest.mark.parametrize("pump", ["sync", "threaded"])
+def test_cuda_apps_run_under_sharded_managers(cuda_device, executor, pump):
+    backend = "pallas" if executor == "staged" else "xla"
+    for name, kwargs in (("matmul", dict(n=256, tile=64)),
+                         ("cholesky", dict(n=512, tile=128))):
+        stats = apps.run_app(name, executor, device=str(cuda_device),
+                             kernel_backend=backend, dep_manager="sharded",
+                             dep_pump=pump, app_kwargs=kwargs)
+        assert stats.dep_messages > 0
+        assert sum(stats.manager_admissions) >= stats.tasks_spawned

@@ -268,21 +268,37 @@ def test_cuda_device_without_cuda_raises(monkeypatch):
         repro_torch.apps.run_app("matmul", app_kwargs=dict(n=64, tile=32))
 
 
+@pytest.mark.parametrize("overrides", [
+    dict(executor="host"),                                    # item 4
+    dict(executor="staged", dep_manager="sharded"),           # item 6
+    dict(executor="staged", dep_manager="sharded", dep_pump="sync"),
+    dict(executor="host", dep_manager="sharded", dep_pump="threaded"),
+], ids=["host", "sharded-auto", "sharded-sync", "host-sharded-threaded"])
+def test_ported_executors_run(overrides):
+    rt = TaskRuntime(RuntimeConfig(device="cpu", **overrides))
+    try:
+        assert rt.executor_kind == overrides["executor"]
+        if overrides.get("dep_manager") == "sharded":
+            assert rt.dep_pump in ("sync", "threaded")
+            assert overrides.get("dep_pump", rt.dep_pump) == rt.dep_pump
+            assert rt.stats().dep_messages == 0
+        with rt.scope():
+            A = rt.full((8, 8), (4, 4), 1.0)
+            C = rt.zeros((8, 8), (4, 4))
+            fut = _scale(C[1, 0], A[0, 1], 3.0)
+            assert torch.equal(fut.result(), torch.full((4, 4), 3.0))
+        if overrides.get("dep_manager") == "sharded":
+            assert rt.stats().dep_messages > 0
+    finally:
+        rt.shutdown()
+
+
 @pytest.mark.parametrize("overrides,item", [
-    (dict(executor="host"), None),            # ported: item 4 runs
-    (dict(executor="staged", dep_manager="sharded"), "item 6"),
     (dict(executor="sim"), "item 7"),
     (dict(executor="sharded"), "item 9"),
     (dict(executor="staged", sim_cost_fn=lambda td: (0, 0)), "item 7"),
 ])
 def test_unported_executors_raise_not_implemented(overrides, item):
-    if item is None:
-        rt = TaskRuntime(RuntimeConfig(device="cpu", **overrides))
-        try:
-            assert rt.executor_kind == overrides["executor"]
-        finally:
-            rt.shutdown()
-        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md .*{item}"):
         TaskRuntime(RuntimeConfig(device="cpu", **overrides))
 
