@@ -24,8 +24,9 @@ Phases, each of which must pass (any failure exits non-zero):
    tile update, 1e-6 for the halo stencil at all four of the Jacobi app's
    halo shapes (corner, both edges, interior), 2e-5 for flash decode
    (``o`` and ``lse``) at the serve path's per-task shape and at
-   Mistral-NeMo-12B's decode width (each call profiled once: one kernel
-   launch; its cluster size and block count printed), rtol 1e-5 / atol
+   Mistral-NeMo-12B's decode width, with K and V in f32 and in bf16
+   (each call profiled once: one kernel launch; its cluster size, block
+   count and resident clusters printed), rtol 1e-5 / atol
    1e-3 for Black-Scholes at the §4.2 app's 2,097,152 options plus put-call
    parity at 1e-4, and for flash attention 2e-5 in f32 and 2e-2 in bf16
    (``tests/test_kernels.py``) at the reference tests' shapes and, in
@@ -36,7 +37,8 @@ Phases, each of which must pass (any failure exits non-zero):
    B 1 x 8,192 tokens.  ``bound_ms`` is the least time the card could
    take: the bytes the function must move over 3.35 TB/s or its
    operations over the peak for their type, 67 TFLOP/s FP32 or 989
-   TFLOP/s bf16 on the tensor cores (H100 SXM data sheet), the larger.
+   TFLOP/s bf16 on the tensor cores (H100 SXM data sheet, read from
+   ``repro_torch.core.costmodel.H100Params``), the larger.
    Flash attention counts 4 D operations per visible (query, key) pair.
 4. Apps (main path 1): the five apps at the §4.2 sizes through
    ``TaskRuntime(executor="staged", kernel_backend="pallas",
@@ -71,9 +73,11 @@ Phases, each of which must pass (any failure exits non-zero):
    ``sync`` then ``threaded``.  Each run must reproduce phase 4's wave
    schedule (spawn orders per wave), ``deps_found``, ``blocks_walked``,
    waves, groups, wave-kernel dispatches and every kernel's launches;
-   both pumps must put the same envelopes and lines on the rings.
-   ``[depman]`` lines give wall, spawn, barrier and pump seconds and the
-   wire counts.  Then matmul and Cholesky on the host executor under
+   both pumps must put the same envelopes and lines on the rings, and
+   the logical stream replayed through the port's
+   ``core.sim.predict_dep_traffic`` must predict those envelopes and
+   lines.  ``[depman]`` lines give wall, spawn, barrier and pump seconds
+   and the wire counts.  Then matmul and Cholesky on the host executor under
    central, sync and threaded, outputs within the parity tolerance.
 8. Fuzz: the 60 seeds of ``repro_torch.fuzz_graphs`` on sequential (the
    oracle), staged, host, staged with the kernels, and staged under the
@@ -81,7 +85,21 @@ Phases, each of which must pass (any failure exits non-zero):
    runs bit-identical to central's), equal dependence counts across the
    staged paths, equal wire counts across the pumps, and one GEMM launch
    (8x8x8 tiles) per ``_gemm`` wave dispatch; one ``[fuzz]`` line.
-9. Parity: at a small size, ``executor="sequential"`` against staged with
+9. Sim: the five apps at the §4.2 sizes under ``executor="sim"``,
+   ``kernel_backend="pallas"``, ``device="cuda"`` (the DES; no task body
+   runs).  ``[sim]`` lines give the predicted makespan, the sequential
+   time, the predicted speedup and tile moves, spawn seconds and the
+   phase wall.  The predicted wave-kernel dispatches and fallbacks by
+   reason must equal phase 4's; no wrapper may count a launch, and a
+   profiler window over one sim run must hold no kernel of ``csrc/``.
+   ``calibrate()`` must pass its trend checks.
+10. Obs: a staged matmul run (§4.2 size, wave kernels) traced to JSONL
+   and exported with ``export_chrome_trace``: a valid document with one
+   wave span per wave, and its ``summary_table`` on ``[obs]`` lines; then
+   the same run with ``profile_waves=True`` inside ``profile_session
+   ("build/obs")``: every GEMM kernel of the run in the written trace,
+   launched inside a ``bddt/staged/wave*`` range.
+11. Parity: at a small size, ``executor="sequential"`` against staged with
    the wave kernels and against host, all five apps, within each app's
    tolerance.
 
@@ -98,9 +116,18 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM, data sheet
-FP32_FLOPS_PER_S = 67e12           # H100 SXM, FP32 outside the tensor cores
-BF16_FLOPS_PER_S = 989e12          # H100 SXM, dense bf16 on the tensor cores
+sys.path.insert(0, str(ROOT / "src"))
+try:
+    from repro_torch.core.costmodel import H100Params
+except ImportError as e:
+    print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
+    sys.exit(2)
+
+# the card's peaks (H100 SXM data sheet), kept in one place: costmodel
+_H100 = H100Params()
+HBM_BYTES_PER_S = _H100.hbm_bw
+FP32_FLOPS_PER_S = _H100.peak_flops_fp32   # outside the tensor cores
+BF16_FLOPS_PER_S = _H100.peak_flops_bf16   # dense, on the tensor cores
 L2_FLUSH_BYTES = 256 << 20         # > the 50 MB L2
 
 
@@ -174,8 +201,8 @@ def kernel_phase(dev) -> list[dict]:
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev)
+    def randn(*shape, g=None):
+        return torch.randn(shape, generator=g or gen, device=dev)
 
     def uniform(lo, hi, n):
         return lo + (hi - lo) * torch.rand(n, generator=gen, device=dev)
@@ -264,18 +291,23 @@ def kernel_phase(dev) -> list[dict]:
     # one 512-row KV tile at head_dim 128) is the row's time; the same
     # kernel at Mistral-NeMo-12B's decode width (B 4, Hq 32, Hkv 8, 32k
     # tokens) is checked and timed too, in "wide"
-    def fd_case(b, hq, hkv, s, d):
-        q, kk, vv = randn(b, hq, d), randn(b, hkv, s, d), randn(b, hkv, s, d)
+    def fd_case(b, hq, hkv, s, d, kv_dtype=torch.float32, g=None):
+        q, kk, vv = (randn(b, hq, d, g=g), randn(b, hkv, s, d, g=g),
+                     randn(b, hkv, s, d, g=g))
+        kk, vv = kk.to(kv_dtype), vv.to(kv_dtype)
         scale = d ** -0.5
-        nbytes = 4 * (q.numel() + kk.numel() + vv.numel() + b * hq * d +
-                      b * hq)
+        # q, o and lse in f32; K and V in their own dtype
+        nbytes = 4 * (q.numel() + b * hq * d + b * hq) + \
+            kk.element_size() * (kk.numel() + vv.numel())
         flops = 4 * b * hq * s * d            # q.k and p.v
+        qq = q.to(kv_dtype)                   # SDPA takes one dtype
+        label = "" if kv_dtype == torch.float32 else f" {str(kv_dtype)[6:]}"
         return dict(
-            shape=f"q({b},{hq},{d}) kv({b},{hkv},{s},{d})",
+            shape=f"q({b},{hq},{d}) kv({b},{hkv},{s},{d}){label}",
             wrapper=lambda: fd.flash_decode(q, kk, vv, scale, bk=s),
             plain=lambda: fd.flash_decode_plain(q, kk, vv, scale),
             library=lambda: F.scaled_dot_product_attention(
-                q[:, :, None], kk, vv, scale=scale, enable_gqa=True),
+                qq[:, :, None], kk, vv, scale=scale, enable_gqa=True),
             bound=bound(nbytes, flops))
 
     sizes = serve_lm.CHIP_SIZES
@@ -284,14 +316,24 @@ def kernel_phase(dev) -> list[dict]:
     for b_, hq, hkv, s_, d in ((1, 1, 1, sizes["s_tile"], sizes["d"]),
                                (4, 32, 8, 32768, 128)):
         cs, keys = fd.split(s_)
-        smem, resident = fd.occupancy(hq // hkv, d)
-        print(f"[kernel] flash_decode split q({b_},{hq},{d}) "
-              f"kv({b_},{hkv},{s_},{d}): cluster={cs} keys_per_block={keys} "
-              f"blocks={cs * hkv * b_} blocks_with_keys="
-              f"{-(-s_ // keys) * hkv * b_} smem_bytes={smem} "
-              f"clusters={hkv * b_} resident_clusters={resident}",
-              flush=True)
-    for case in (serve_case, wide_case):
+        for kv_dtype in fd.KV_DTYPES:
+            smem, resident = fd.occupancy(hq // hkv, d, kv_dtype)
+            print(f"[kernel] flash_decode split q({b_},{hq},{d}) "
+                  f"kv({b_},{hkv},{s_},{d}) {str(kv_dtype)[6:]}: "
+                  f"cluster={cs} keys_per_block={keys} "
+                  f"blocks={cs * hkv * b_} blocks_with_keys="
+                  f"{-(-s_ // keys) * hkv * b_} smem_bytes={smem} "
+                  f"clusters={hkv * b_} resident_clusters={resident}",
+                  flush=True)
+    # K and V in bf16 (q, o and lse f32), at the same two shapes; drawn
+    # from a generator of their own, so the other rows' inputs do not
+    # depend on them
+    bf16_gen = torch.Generator(device=dev).manual_seed(1)
+    bf16_case = fd_case(1, 1, 1, sizes["s_tile"], sizes["d"], torch.bfloat16,
+                        g=bf16_gen)
+    bf16_wide_case = fd_case(4, 32, 8, 32768, 128, torch.bfloat16,
+                             g=bf16_gen)
+    for case in (serve_case, wide_case, bf16_case, bf16_wide_case):
         names = device_kernels(case["wrapper"])
         ours = [x for x in names if "flash_decode" in x]
         print(f"[kernel] flash_decode {case['shape']}: device kernels of "
@@ -302,7 +344,8 @@ def kernel_phase(dev) -> list[dict]:
         name="flash_decode", rtol=2e-5, atol=2e-5,
         source="src/repro_torch/csrc/flash_decode.cu",
         replaces="src/repro/kernels/flash_decode/kernel.py:58",
-        wide=wide_case, **serve_case))
+        wide=wide_case, bf16=bf16_case, bf16_wide=bf16_wide_case,
+        **serve_case))
 
     # Black-Scholes: the §4.2 app's 2,097,152 options in one launch (the
     # staged group of its 4096 tasks), inputs drawn as the app draws them
@@ -370,10 +413,12 @@ def kernel_phase(dev) -> list[dict]:
     for row in rows:
         checks = row.get("checks") or [(row["shape"], row["wrapper"],
                                          row["plain"])]
-        if "wide" in row:
-            w = row["wide"]
+        # the row's other shapes and dtypes: checked, timed, reported
+        # under their key
+        extras = {key: row[key] for key in EXTRA_CASES if key in row}
+        for w in extras.values():
             checks.append((w["shape"], w["wrapper"], w["plain"]))
-        err = 0.0
+        err, errs = 0.0, {}
         for shape, wrapper, plain, *tol in checks:
             rtol, atol = tol or (row["rtol"], row["atol"])
             got = [x.float() for x in _as_tuple(wrapper())]
@@ -394,6 +439,7 @@ def kernel_phase(dev) -> list[dict]:
                       f"version (max_abs_err {case_err}, tolerance "
                       f"{rtol}/{atol})")
             del got, want
+            errs[shape] = case_err
             err = max(err, case_err)
         ms = time_ms(row["wrapper"], flush)
         plain_ms = time_ms(row["plain"], flush)
@@ -408,20 +454,24 @@ def kernel_phase(dev) -> list[dict]:
                       max_abs_err=err, ms=ms, plain_ms=plain_ms,
                       bound_ms=bound_ms, bound_by=bound_by,
                       library_ms=library_ms, shape=row["shape"])
-        if "wide" in row:
-            w = row["wide"]
-            wide = dict(shape=w["shape"], ms=time_ms(w["wrapper"], flush),
-                        plain_ms=time_ms(w["plain"], flush),
-                        library_ms=time_ms(w["library"], flush),
-                        bound_ms=w["bound"][0], bound_by=w["bound"][1])
+        for key, w in extras.items():
+            extra = dict(shape=w["shape"], ms=time_ms(w["wrapper"], flush),
+                         plain_ms=time_ms(w["plain"], flush),
+                         library_ms=time_ms(w["library"], flush),
+                         bound_ms=w["bound"][0], bound_by=w["bound"][1],
+                         max_abs_err=errs[w["shape"]])
             print(f"[kernel] {row['name']} {w['shape']}: " +
-                  " ".join(f"{k}={v}" for k, v in wide.items()
+                  " ".join(f"{k}={v}" for k, v in extra.items()
                            if k != "shape"), flush=True)
-            result["wide"] = wide
+            result[key] = extra
         results.append(result)
     parity_of_black_scholes(dev, gen)
     del flush
     return results
+
+
+# a kernel row's other shapes and dtypes, each timed beside the row's own
+EXTRA_CASES = ("wide", "bf16", "bf16_wide")
 
 
 def parity_of_black_scholes(dev, gen) -> None:
@@ -535,10 +585,13 @@ def app_phase(dev) -> tuple[dict[str, int], dict[str, dict]]:
                   bool(torch.isfinite(full).all().item()),
                   f"{name}: output {arr.name} not finite or misshapen")
         fallbacks: dict[str, int] = {}
+        reasons: dict[str, int] = {}
         for e in trk.events_of("kernel_dispatch"):
             if e.data["backend"] != "pallas":
                 key = f"{e.data['fn']}:{e.data['reason']}"
                 fallbacks[key] = fallbacks.get(key, 0) + 1
+                reasons[e.data["reason"]] = \
+                    reasons.get(e.data["reason"], 0) + 1
         dispatch_s = sum(e.data["wall_s"] for e in trk.events_of("dispatch"))
         print("[app] " + json.dumps(dict(
             app=name, size=apps.PAPER_SIZES[name], wall_s=wall,
@@ -559,6 +612,7 @@ def app_phase(dev) -> tuple[dict[str, int], dict[str, dict]]:
         for k, v in launches.items():
             total[k] += v
         central[name] = dict(schedule=schedule, launches=launches,
+                             fallbacks_by_reason=reasons,
                              wall_s=wall, spawn_s=stats.spawn_time_s,
                              barrier_s=stats.barrier_time_s,
                              gc_s=gct.seconds,
@@ -578,6 +632,7 @@ def depman_phase(dev, central: dict[str, dict]) -> dict[str, int]:
     ``PARITY_TOL`` of central's.  Returns the launches per kernel."""
     import torch
     from repro_torch import RuntimeConfig, TaskRuntime, apps
+    from repro_torch.core.sim import predict_dep_traffic
     from repro_torch.profile_apps import GCTimer
 
     _, wrappers = app_wrappers()
@@ -590,6 +645,7 @@ def depman_phase(dev, central: dict[str, dict]) -> dict[str, int]:
             rt = TaskRuntime(RuntimeConfig(
                 executor="staged", kernel_backend="pallas", device=str(dev),
                 dep_pump=pump, **sharded))
+            rt.analyzer.traffic_log = []      # record the logical stream
             schedule = record_waves(rt)
             for w in wrappers.values():
                 w.launches = 0
@@ -605,6 +661,9 @@ def depman_phase(dev, central: dict[str, dict]) -> dict[str, int]:
             st = rt.stats()
             ref = central[name]
             wire[pump] = (st.dep_messages, st.dep_batches, st.dep_lines)
+            pred = predict_dep_traffic(rt.analyzer.traffic_log,
+                                       sharded["dep_batch_lines"],
+                                       rt.analyzer.traffic_deps)
             print("[depman] " + json.dumps(dict(
                 app=name, executor="staged", pump=pump, homes=4,
                 batch_lines=4, wall_s=wall, spawn_s=st.spawn_time_s,
@@ -612,6 +671,8 @@ def depman_phase(dev, central: dict[str, dict]) -> dict[str, int]:
                 pump_wall_s=st.pump_wall_s, pump_idle_waits=idle_waits,
                 dep_messages=st.dep_messages, dep_batches=st.dep_batches,
                 dep_lines=st.dep_lines,
+                predicted_dep_batches=pred["dep_batches"],
+                predicted_dep_lines=pred["dep_lines"],
                 manager_admissions=st.manager_admissions,
                 tasks=st.tasks_spawned, waves=st.waves,
                 central_wall_s=ref["wall_s"],
@@ -631,6 +692,11 @@ def depman_phase(dev, central: dict[str, dict]) -> dict[str, int]:
                   f"central's {ref['launches']}")
             check(sum(st.manager_admissions) >= st.tasks_spawned,
                   f"depman {name} {pump}: fewer admissions than tasks")
+            check((pred["dep_batches"], pred["dep_lines"]) ==
+                  (st.dep_batches, st.dep_lines),
+                  f"depman {name} {pump}: predict_dep_traffic gives "
+                  f"{pred}, the rings carried {st.dep_batches} envelopes "
+                  f"and {st.dep_lines} lines")
             for k, v in launches.items():
                 total[k] += v
         check(wire["sync"] == wire["threaded"],
@@ -726,6 +792,180 @@ def fuzz_phase(dev) -> int:
           f"fuzz: {launches} matmul_batched launches but "
           f"{totals['gemm_dispatches']} _gemm wave dispatches")
     return launches
+
+
+def csrc_kernels() -> set[str]:
+    """The names of the kernels in ``src/repro_torch/csrc/*.cu``."""
+    import re
+    return {name for path in (ROOT / "src" / "repro_torch" / "csrc")
+            .glob("*.cu")
+            for name in re.findall(r"\b(\w+_kernel)\b", path.read_text())}
+
+
+def sim_phase(dev, central: dict[str, dict]) -> None:
+    """``executor="sim"`` on the card: the five apps at §4.2 sizes under
+    ``kernel_backend="pallas"``, ``device="cuda"``.  The predicted
+    wave-kernel dispatches and fallbacks by reason must equal what phase
+    4's staged runs launched; no wrapper may count a launch, and a
+    profiler window over one sim run must hold no kernel of ``csrc/``.
+    Then ``calibrate()`` must pass its trend checks."""
+    import torch
+    from torch.autograd import DeviceType
+    from repro_torch import RuntimeConfig, TaskRuntime, apps
+    from repro_torch.core.calibrate import calibrate
+    from repro_torch.obs import InMemoryTracker
+
+    _, wrappers = app_wrappers()
+    before = {k: w.launches for k, w in wrappers.items()}
+
+    def run(name, tracker=None):
+        rt = TaskRuntime(RuntimeConfig(
+            executor="sim", kernel_backend="pallas", device=str(dev),
+            tracker=tracker))
+        try:
+            apps.APPS[name](rt, verify=False, **apps.PAPER_SIZES[name])
+            rt.barrier()
+            return rt.stats(), dict(rt._exec.fallbacks)
+        finally:
+            rt.shutdown()
+
+    for name in APP_NAMES:
+        trk = InMemoryTracker()
+        t0 = time.perf_counter()
+        st, reasons = run(name, trk)
+        wall = time.perf_counter() - t0
+        seq = sum(e.data["sequential_s"] for e in trk.events_of("sim_predict"))
+        ref = central[name]
+        print("[sim] " + json.dumps(dict(
+            app=name, size=apps.PAPER_SIZES[name], wall_s=wall,
+            spawn_s=st.spawn_time_s, tasks=st.tasks_spawned,
+            predicted_total_s=st.predicted_total_s, sequential_s=seq,
+            predicted_speedup=seq / st.predicted_total_s,
+            predicted_tile_moves=st.tile_moves,
+            kernel_dispatches=st.kernel_dispatches,
+            kernel_fallbacks=st.kernel_fallbacks,
+            fallbacks_by_reason=reasons,
+            staged_kernel_dispatches=ref["kernel_dispatches"],
+            staged_fallbacks_by_reason=ref["fallbacks_by_reason"])),
+            flush=True)
+        check(st.predicted_total_s > 0 and seq > 0 and
+              st.predicted_total_s < float("inf"),
+              f"sim {name}: predicted {st.predicted_total_s} s")
+        check((st.kernel_dispatches, st.kernel_fallbacks) ==
+              (ref["kernel_dispatches"], ref["kernel_fallbacks"]),
+              f"sim {name}: predicted {st.kernel_dispatches} dispatches and "
+              f"{st.kernel_fallbacks} fallbacks, the staged run had "
+              f"{ref['kernel_dispatches']} and {ref['kernel_fallbacks']}")
+        check(reasons == ref["fallbacks_by_reason"],
+              f"sim {name}: fallbacks {reasons} != the staged run's "
+              f"{ref['fallbacks_by_reason']}")
+    after = {k: w.launches for k, w in wrappers.items()}
+    check(after == before, f"sim: a kernel launched ({before} -> {after})")
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    ours = csrc_kernels()
+    with torch.profiler.profile(activities=acts) as prof:
+        run("cholesky")
+        torch.cuda.synchronize()
+    device = [e.name for e in prof.events()
+              if e.device_type == DeviceType.CUDA]
+    hits = sorted({n for n in device if any(k in n for k in ours)})
+    print(f"[sim] profiled cholesky sim run: {len(device)} device events "
+          f"(tile copies and fills), kernels of csrc/ {hits}", flush=True)
+    check(not hits, f"sim: kernels of csrc/ ran: {hits}")
+
+    t0 = time.perf_counter()
+    res = calibrate()
+    print("[sim] calibrate " + json.dumps(dict(
+        seconds=time.perf_counter() - t0, **res.as_dict())), flush=True)
+    check(res.ok, f"calibrate: {res.as_dict()}")
+
+
+def kernels_in_ranges(path, kernel: str, prefix: str) -> dict[str, int]:
+    """In a ``torch.profiler`` Chrome trace: the launches of device
+    kernels named ``*kernel*``, and how many of them were launched (their
+    runtime call, matched by correlation id) inside a CPU range whose name
+    starts with ``prefix``."""
+    evs = json.loads(pathlib.Path(path).read_text())["traceEvents"]
+    ranges = [(e["ts"], e["ts"] + e["dur"]) for e in evs
+              if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+              and e.get("name", "").startswith(prefix)]
+    launched = {e["args"]["correlation"]: e["ts"] for e in evs
+                if e.get("cat") == "cuda_runtime" and
+                "correlation" in e.get("args", {})}
+    kernels = [e for e in evs if e.get("cat") == "kernel" and
+               kernel in e.get("name", "")]
+    inside = sum(any(a <= launched.get(k["args"].get("correlation"), -1) <= b
+                     for a, b in ranges) for k in kernels)
+    return dict(ranges=len(ranges), kernels=len(kernels), inside=inside,
+                categories=sorted({str(e.get("cat")) for e in evs}))
+
+
+def obs_phase(dev) -> None:
+    """The trace tools on the card.  A staged matmul run (§4.2 size, wave
+    kernels) with a ``JsonlTracker`` goes through ``export_chrome_trace``:
+    a valid document with one wave span per wave, and its
+    ``summary_table``.  A second run with ``profile_waves=True`` inside
+    ``profile_session``: every GEMM kernel launched inside a
+    ``bddt/staged/wave*`` range of the written trace."""
+    import torch
+    from repro_torch import RuntimeConfig, TaskRuntime, apps
+    from repro_torch.kernels.matmul import kernel as mm
+    from repro_torch.obs import (JsonlTracker, export_chrome_trace,
+                                 load_jsonl, profile_session, summary_table)
+
+    out = ROOT / "build" / "obs"
+    out.mkdir(parents=True, exist_ok=True)
+    trace = out / "matmul.jsonl"
+
+    def run(**config):
+        rt = TaskRuntime(RuntimeConfig(
+            executor="staged", kernel_backend="pallas", device=str(dev),
+            **config))
+        try:
+            apps.APPS["matmul"](rt, **apps.PAPER_SIZES["matmul"])
+            torch.cuda.synchronize()
+        finally:
+            rt.shutdown()
+        return rt.stats()
+
+    trk = JsonlTracker(str(trace))
+    st = run(tracker=trk)
+    trk.close()
+    doc = export_chrome_trace(trace, out / "matmul.chrome.json")
+    evs = json.loads((out / "matmul.chrome.json").read_text())["traceEvents"]
+    check(evs == doc["traceEvents"], "obs: the written trace differs")
+    waves = [e for e in evs if e["ph"] == "X" and
+             e["name"].startswith("wave ")]
+    ts = [e["ts"] for e in evs if e["ph"] != "M"]
+    valid = all(e["ph"] in ("X", "C", "i", "M") for e in evs) and \
+        ts == sorted(ts) and min(ts) >= 0 and \
+        all(e["dur"] >= 0 for e in evs if e["ph"] == "X")
+    print(f"[obs] chrome trace: {len(evs)} events, {len(waves)} wave spans, "
+          f"{st.waves} waves, valid={valid}", flush=True)
+    check(valid, "obs: the Chrome trace is not valid")
+    check(len(waves) == st.waves,
+          f"obs: {len(waves)} wave spans for {st.waves} waves")
+    for line in summary_table(load_jsonl(trace)).splitlines():
+        print(f"[obs] {line}", flush=True)
+
+    mm.matmul_batched.launches = 0
+    with profile_session(out, cuda=True) as prof:
+        # wave ranges are opened where waves are traced, as in the
+        # reference: profile_waves takes a tracker
+        st = run(profile_waves=True, tracker="memory")
+    launches = mm.matmul_batched.launches
+    seen = kernels_in_ranges(prof.trace_path, "tile_gemm_3xtf32_kernel",
+                             "bddt/staged/wave")
+    print("[obs] profile_session " + json.dumps(dict(
+        trace=str(prof.trace_path.relative_to(ROOT)), waves=st.waves,
+        matmul_batched_launches=launches, **seen)), flush=True)
+    check(seen["ranges"] == st.waves,
+          f"obs: {seen['ranges']} wave ranges for {st.waves} waves")
+    check(launches > 0 and seen["kernels"] == launches == seen["inside"],
+          f"obs: {launches} GEMM launches, {seen['kernels']} in the trace, "
+          f"{seen['inside']} inside the wave ranges")
 
 
 def _idle_share(prof, span: str):
@@ -1005,13 +1245,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this smoke test runs only on a "
               "GPU", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
-    try:
-        from repro_torch.kernels import _build
-    except ImportError as e:
-        print(f"chip_smoke: run from the repository root ({e})",
-              file=sys.stderr)
-        return 2
+    from repro_torch.kernels import _build
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -1039,6 +1273,8 @@ def main() -> int:
     launches["flash_attention"] = llm_phase(dev, card)
     by_path = {"depman": depman_phase(dev, central),
                "fuzz": {"matmul_batched": fuzz_phase(dev)}}
+    sim_phase(dev, central)
+    obs_phase(dev)
     for row in kernels:
         row["launches"] = launches[row["name"]]
         row["launches_by_path"] = {

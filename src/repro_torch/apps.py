@@ -308,12 +308,15 @@ def run_app(name: str, executor: str = "staged", *,
     """Run one paper app on a fresh runtime and return its RuntimeStats.
 
     Every app self-verifies its numerics against the plain reference, so
-    a returned stats object means the run was correct.  ``app_kwargs``
-    forwards problem sizes to the app; ``config_overrides`` go to
+    a returned stats object means the run was correct.  ``verify=None``
+    means "verify unless the executor cannot": the timing-only ``"sim"``
+    executor never computes task values, so its runs skip the check (and
+    its stats carry ``predicted_total_s``).  ``app_kwargs`` forwards
+    problem sizes to the app; ``config_overrides`` go to
     :class:`RuntimeConfig` (``device="cpu"`` runs on the CPU).
     """
     if verify is None:
-        verify = True
+        verify = executor != "sim"
     config_overrides.setdefault("n_workers", 4)
     rt = TaskRuntime(RuntimeConfig(executor=executor, **config_overrides))
     try:

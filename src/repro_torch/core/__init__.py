@@ -14,6 +14,12 @@ module, with tiles as torch tensors on one device:
   staged (wavefront batching) execution
 * :mod:`wavekernel` — the registry of hand-written wave kernels
 * :mod:`placement`  — memory-controller striping (block homes)
+* :mod:`costmodel`  — SCC latency/contention model (Figs 3-4) + the H100
+  roofline constants
+* :mod:`sim`        — discrete-event simulation of the SCC runtime
+  (``executor="sim"``)
+* :mod:`calibrate`  — the cost model fitted to the paper's
+  microbenchmarks, with its trend checks
 """
 from .api import (DEP_MANAGERS, DEP_PUMPS, EXECUTORS, KERNEL_BACKENDS,
                   PLACEMENTS, SCHEDULING_POLICIES, STATS_SCHEMA,
@@ -23,9 +29,12 @@ from .api import (DEP_MANAGERS, DEP_PUMPS, EXECUTORS, KERNEL_BACKENDS,
                   wait_on)
 from .blocks import (AccessMode, BlockArray, In, InOut, Out, Region,
                      coerce_mode)
+from .costmodel import H100Params, SCCParams
 from .depman import ShardedDependenceManager
 from .executor import Executor
 from .runtime import TaskRuntime
+from .sim import (FlopcountCost, SimExecutor, SimResult, SimTask,
+                  predict_dep_traffic, sequential_time, simulate)
 from .wavekernel import register_wave_kernel
 
 __all__ = [
@@ -42,4 +51,7 @@ __all__ = [
     "DEP_PUMPS", "SCHEDULING_POLICIES", "PLACEMENTS", "KERNEL_BACKENDS",
     # extension surfaces
     "Executor", "ShardedDependenceManager", "register_wave_kernel",
+    # the timing-only sim executor and its cost model
+    "SimExecutor", "SimTask", "SimResult", "FlopcountCost", "simulate",
+    "sequential_time", "predict_dep_traffic", "SCCParams", "H100Params",
 ]

@@ -232,8 +232,6 @@ def _check_choice(field: str, value, choices: tuple[str, ...]) -> str:
 #: queue 1 item that brings each one; asking for them raises
 #: ``NotImplementedError`` instead of substituting another executor
 UNPORTED = {
-    ("executor", "sim"):
-        "ROADMAP.md queue 1 item 7 (sim, cost model and calibration)",
     ("executor", "sharded"):
         "ROADMAP.md queue 1 item 9 (sharded executor and mesh layer)",
 }
@@ -249,10 +247,12 @@ class RuntimeConfig:
     member, and ``validate()`` normalizes members to their string values.
 
     * ``executor``    — "host" (the default: master + worker threads over
-      MPB rings), "sequential" (serial-elision oracle) or "staged"
-      (wavefront batching).  "sim" and "sharded" are valid spellings
-      that this port does not run yet: the runtime raises
-      ``NotImplementedError`` naming their ``ROADMAP.md`` item
+      MPB rings), "sequential" (serial-elision oracle), "staged"
+      (wavefront batching) or "sim" (the timing-only DES: the real task
+      program's DAG replayed on the SCC cost model, ``core/sim.py``; no
+      task output is computed and no kernel launches).  "sharded" is a
+      valid spelling that this port does not run yet: the runtime raises
+      ``NotImplementedError`` naming its ``ROADMAP.md`` item
       (:data:`UNPORTED`).
     * ``n_workers`` / ``mpb_slots`` — worker count and per-worker MPB ring
       depth (§3.2).
@@ -281,8 +281,10 @@ class RuntimeConfig:
       kernel (``"no_kernel"``), fall back to the vmap path; the runtime
       counts them in ``RuntimeStats.kernel_fallbacks`` and tags each
       decision with a ``kernel_dispatch`` tracker event.
-    * ``sim_cost_fn`` / ``sim_params`` — "sim" executor only; must stay
-      None until it is ported.
+    * ``sim_cost_fn`` / ``sim_params`` — "sim" executor only: a per-task
+      ``(flops, bytes)`` cost function of a descriptor (default
+      ``sim.FlopcountCost``) and the ``costmodel.SCCParams`` the DES runs
+      on (default ``SCCParams()``); inert under the other executors.
     * ``tracker`` — the observability sink (``repro_torch.obs``): None
       (off, the default), a spec string (``"memory"``, ``"console"``,
       ``"jsonl"``, ``"jsonl:PATH"``) or a ready ``Tracker`` instance.

@@ -76,10 +76,6 @@ class TaskRuntime:
                 raise NotImplementedError(
                     f"{fld}={value!r} is not ported to repro_torch yet: "
                     f"{item}")
-        if config.sim_cost_fn is not None or config.sim_params is not None:
-            raise NotImplementedError(
-                f"sim_cost_fn/sim_params belong to the sim executor, not "
-                f"ported yet: {UNPORTED[('executor', 'sim')]}")
         if torch.device(config.device).type == "cuda" and \
                 not torch.cuda.is_available():
             raise RuntimeError(
@@ -155,6 +151,18 @@ class TaskRuntime:
         if config.executor == ExecutorKind.HOST:
             return HostExecutor(self.graph, self.scheduler, self.queues,
                                 cache_tiles=config.worker_cache_tiles)
+        if config.executor == ExecutorKind.SIM:
+            from .sim import SimExecutor
+            return SimExecutor(self.graph, self.scheduler,
+                               n_workers=config.n_workers,
+                               mpb_slots=config.mpb_slots,
+                               cost_fn=config.sim_cost_fn,
+                               params=config.sim_params,
+                               dep_managers=(config.n_controllers
+                                             if config.dep_manager ==
+                                             "sharded" else None),
+                               dep_batch_lines=config.dep_batch_lines,
+                               kernel_backend=config.kernel_backend)
         return StagedExecutor(self.graph, self.scheduler, self.device,
                               group=config.group_waves,
                               kernel_backend=config.kernel_backend)
@@ -330,9 +338,12 @@ class TaskRuntime:
         if isinstance(self._exec, StagedExecutor):
             s.waves = self._exec.waves_run
             s.grouped_dispatches = self._exec.grouped_dispatches
-            if self._exec.kernel_backend == "pallas":
-                s.kernel_dispatches = self._exec.kernel_dispatches
-                s.kernel_fallbacks = self._exec.kernel_fallbacks
+        # wave-kernel counters, duck-typed so the staged executor (real)
+        # and the sim executor (predicted) report the same fields; inert
+        # under "xla"
+        if getattr(self._exec, "kernel_backend", "xla") == "pallas":
+            s.kernel_dispatches = self._exec.kernel_dispatches
+            s.kernel_fallbacks = self._exec.kernel_fallbacks
         s.tile_moves = self.traffic.tile_moves
         s.bytes_moved = self.traffic.bytes_moved
         s.bytes_staged = self.traffic.bytes_staged
@@ -353,4 +364,9 @@ class TaskRuntime:
             s.admission_deferred = a.deferred
             s.admission_peak_bytes = a.peak_in_flight_bytes
             s.admission_budget_bytes = a.budget_bytes
+        if getattr(self._exec, "last_result", None) is not None:
+            s.predicted_total_s = self._exec.predicted_total_s
+            # the DES never executes bodies: tile_moves is its *predicted*
+            # count of cross-home block fetches
+            s.tile_moves = self._exec.predicted_tile_moves
         return s

@@ -1,4 +1,5 @@
-// Flash-decode over one KV shard for Hopper (sm_90a), FP32.
+// Flash-decode over one KV shard for Hopper (sm_90a): q, o and lse in
+// FP32, K and V in FP32 or bf16, all arithmetic in FP32.
 //
 // Replaces the Pallas TPU kernel flash_decode_pallas
 // (src/repro/kernels/flash_decode/kernel.py, _decode_kernel).  One new
@@ -10,6 +11,14 @@
 // the shard-normalised output and the log-sum-exp that
 // ref.combine_partials merges shards with.  A row whose softmax sum is 0
 // gets o = 0 and lse = -1e30, as in the TPU kernel.
+//
+// K and V in bf16: the TPU kernel casts each K/V block to f32 before it
+// computes, so bf16 K/V work there.  Here the kernel is a template on the
+// K/V element type T.  The cp.async rings hold T as it lies in global
+// memory, and each element is converted to f32 where it is used (the q.k
+// loads and the P.V rows), so a bf16 ring takes half the shared memory
+// of an f32 one and the pipeline stays one of 16-byte asynchronous
+// copies.
 //
 // Bound on an H100: memory.  K and V stream past once (2 B Hkv S D 4
 // bytes) against 4 flops per element, far below the ridge.  The TPU
@@ -31,7 +40,7 @@
 //   * Inside a block, NW = 4 warps.  Block stage j is the KB keys from
 //     r R + j KB; warp w takes its KW = 8 of them and streams them
 //     through its own ring of NST = 3 shared-memory stages (16-byte
-//     cp.async copies of K and V rows, zero fill past the range), so two
+//     cp.async copies of K and V rows in T, zero fill past the range), so two
 //     stages are in flight while one is computed, and the warp needs no
 //     barrier but __syncwarp.
 //   * q.k without a shuffle reduction per dot product: lane (key l % KW,
@@ -51,6 +60,7 @@
 //     o = sum_i acc_i e^(m_i - M) / L, lse = M + log L, a part with
 //     m_i = -inf (no key) weighing 0.  expf/logf, not the __ intrinsics.
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -70,34 +80,69 @@ constexpr int KB = NW * KW;          // keys a block takes per stage
 constexpr int NST = 3;               // stages in each warp's ring
 constexpr int MAX_GRID_Z = 65535;
 
-template <int D>
+template <int D, typename T>
 struct Layout {
-  static constexpr int LD = D + 4;           // row stride (floats): rows
-                                             // 16-B aligned, and the 8 keys
-                                             // one quarter-warp reads at
-                                             // one column on distinct banks
-  static constexpr int STAGE = 2 * KW * LD;  // KW rows of K, then of V
-  static constexpr int RING = NST * STAGE;   // one warp's ring
+  static constexpr int EPC = 16 / sizeof(T);  // elements of one 16-B copy
+  static constexpr int LD = D + EPC;          // row stride (elements):
+                                              // rows 16-B aligned, and the
+                                              // 8 keys one quarter-warp
+                                              // reads at one column on
+                                              // distinct banks
+  static constexpr int STAGE = 2 * KW * LD;   // KW rows of K, then of V
+  static constexpr int RING = NST * STAGE;    // one warp's ring
+  // a warp's ring holds its partial (acc [G][D], m [G], l [G] in f32)
+  // once its keys are done, for every G up to 8
+  static_assert(sizeof(T) * RING >= sizeof(float) * (8 * D + 16),
+                "the ring cannot hold a warp's partial");
+  static_assert((sizeof(T) * RING) % 16 == 0, "rings stay 16-B aligned");
 };
 
-// dynamic shared memory: q [GMAX][D] (zero past G) | NW rings | the
-// block's partial (acc [G][D], m [G], l [G])
-template <int D, int GMAX>
+// dynamic shared memory: q [GMAX][D] f32 (zero past G) | NW rings of T |
+// the block's partial (acc [G][D], m [G], l [G]) in f32
+template <int D, int GMAX, typename T>
 size_t smem_bytes(int G) {
-  return sizeof(float) * ((size_t)GMAX * D + (size_t)NW * Layout<D>::RING +
-                          (size_t)G * (D + 2));
+  return sizeof(float) * ((size_t)GMAX * D + (size_t)G * (D + 2)) +
+         sizeof(T) * (size_t)NW * Layout<D, T>::RING;
 }
 
-template <int DPL>
-__device__ __forceinline__ void load_row(const float* p, float (&x)[DPL]) {
+// 4 consecutive elements from shared memory as f32 (p 4-element aligned)
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ float load1(const float* p) { return *p; }
+
+__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+template <int DPL, typename T>
+__device__ __forceinline__ void load_row(const T* p, float (&x)[DPL]) {
   if constexpr (DPL == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
+    const float4 t = load4(p);
     x[0] = t.x; x[1] = t.y; x[2] = t.z; x[3] = t.w;
   } else if constexpr (DPL == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
+    const float2 t = load2(p);
     x[0] = t.x; x[1] = t.y;
   } else {
-    x[0] = *p;
+    x[0] = load1(p);
   }
 }
 
@@ -109,17 +154,18 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // grid (CS, Hkv, B), clusters (CS, 1, 1), NW * 32 threads,
-// smem_bytes<D, GMAX>(G) of dynamic shared memory; G <= GMAX query heads
-// per KV head.  The inner loops run all GMAX heads, the ones past G on
-// zero rows of q, so that they hold no branch.
-template <int D, int GMAX>
+// smem_bytes<D, GMAX, T>(G) of dynamic shared memory; G <= GMAX query
+// heads per KV head.  The inner loops run all GMAX heads, the ones past G
+// on zero rows of q, so that they hold no branch.
+template <int D, int GMAX, typename T>
 __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NW * 32)
 flash_decode_split_kernel(const float* __restrict__ q,
-                          const float* __restrict__ k,
-                          const float* __restrict__ v, float* __restrict__ o,
+                          const T* __restrict__ k,
+                          const T* __restrict__ v, float* __restrict__ o,
                           float* __restrict__ lse, int Hkv, int G, int S,
                           int range, float scale) {
-  using L = Layout<D>;
+  using L = Layout<D, T>;
+  constexpr int EPC = L::EPC;
   constexpr int DPL = D / 32;        // elements of D a lane owns in P.V
   constexpr int DQ = D / (32 / KW);  // elements of D a lane reads in q.k
   cg::cluster_group cluster = cg::this_cluster();
@@ -130,9 +176,14 @@ flash_decode_split_kernel(const float* __restrict__ q,
 
   extern __shared__ float4 smem4[];
   float* const q_s = reinterpret_cast<float*>(smem4);     // [GMAX][D]
-  float* const rings = q_s + (size_t)GMAX * D;             // [NW][RING]
-  float* const bpart = rings + (size_t)NW * L::RING;       // the block's
-  float* const wring = rings + (size_t)warp * L::RING;
+  T* const rings = reinterpret_cast<T*>(q_s + (size_t)GMAX * D);  // [NW][RING]
+  float* const bpart =                                     // the block's
+      reinterpret_cast<float*>(rings + (size_t)NW * L::RING);
+  T* const wring = rings + (size_t)warp * L::RING;
+  // warp w's partial, in its ring once its keys are done
+  auto wpart = [&](int w) {
+    return reinterpret_cast<float*>(rings + (size_t)w * L::RING);
+  };
 
   const size_t kv0 = (b * Hkv + h) * (size_t)S * D;
   k += kv0;
@@ -144,13 +195,13 @@ flash_decode_split_kernel(const float* __restrict__ q,
   // this warp's KW keys of block stage j into its ring; rows past the
   // range read as zero
   auto load = [&](int j) {
-    float* st = wring + (j % NST) * L::STAGE;
+    T* st = wring + (j % NST) * L::STAGE;
     const int key0 = s_lo + j * KB + warp * KW;
-    for (int e = lane; e < 2 * KW * (D / 4); e += 32) {
-      const int row = e / (D / 4), c = (e % (D / 4)) * 4;   // row: K then V
+    for (int e = lane; e < 2 * KW * (D / EPC); e += 32) {
+      const int row = e / (D / EPC), c = (e % (D / EPC)) * EPC;  // K, V
       const int key = key0 + row % KW;
       const bool in = key < s_hi;
-      const float* src = (row < KW ? k : v) + (size_t)key * D + c;
+      const T* src = (row < KW ? k : v) + (size_t)key * D + c;
       hopper::cp_async16(st + row * L::LD + c, in ? src : k, in ? 16 : 0);
     }
   };
@@ -183,17 +234,17 @@ flash_decode_split_kernel(const float* __restrict__ q,
     const int key0 = s_lo + j * KB + warp * KW;
     const int nk = min(KW, s_hi - key0);    // keys of this chunk
     if (nk <= 0) continue;                  // warp-uniform
-    const float* ks = wring + (j % NST) * L::STAGE;
-    const float* vs = ks + KW * L::LD;
+    const T* ks = wring + (j % NST) * L::STAGE;
+    const T* vs = ks + KW * L::LD;
 
     float s[GMAX];
 #pragma unroll
     for (int g = 0; g < GMAX; ++g) s[g] = 0.0f;
-    const float* kr = ks + kk * L::LD + part * DQ;
+    const T* kr = ks + kk * L::LD + part * DQ;
     const float* qr = q_s + part * DQ;
 #pragma unroll
     for (int c = 0; c < DQ; c += 4) {
-      const float4 k4 = *reinterpret_cast<const float4*>(kr + c);
+      const float4 k4 = load4(kr + c);
 #pragma unroll
       for (int g = 0; g < GMAX; ++g) {
         const float4 q4 = *reinterpret_cast<const float4*>(qr + g * D + c);
@@ -240,7 +291,7 @@ flash_decode_split_kernel(const float* __restrict__ q,
   // the warp's partial into its own ring (acc [G][D], m [G], l [G])
   hopper::cp_async_wait<0>();
   __syncwarp();
-  float* const w_acc = wring;
+  float* const w_acc = wpart(warp);
 #pragma unroll
   for (int g = 0; g < GMAX; ++g) {
     if (g < G) {
@@ -260,12 +311,11 @@ flash_decode_split_kernel(const float* __restrict__ q,
     const int g = idx / D;
     float big = -CUDART_INF_F;
 #pragma unroll
-    for (int w = 0; w < NW; ++w)
-      big = fmaxf(big, rings[w * L::RING + G * D + g]);
+    for (int w = 0; w < NW; ++w) big = fmaxf(big, wpart(w)[G * D + g]);
     float sum = 0.0f, num = 0.0f;
 #pragma unroll
     for (int w = 0; w < NW; ++w) {
-      const float* wp = rings + w * L::RING;
+      const float* wp = wpart(w);
       const float mw = wp[G * D + g];
       const float e = mw == -CUDART_INF_F ? 0.0f : expf(mw - big);
       sum += wp[G * D + G + g] * e;
@@ -311,7 +361,7 @@ flash_decode_split_kernel(const float* __restrict__ q,
 
 // The kernel's launch attributes, set once per device: the dynamic shared
 // memory of its largest group and a cluster above the portable size.
-template <int D, int GMAX>
+template <int D, int GMAX, typename T>
 cudaError_t prepare() {
   static std::atomic<unsigned long long> done{0};   // a bit per device
   int dev = 0;
@@ -319,28 +369,28 @@ cudaError_t prepare() {
   if (err != cudaSuccess) return err;
   const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
   if (done.load() & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(flash_decode_split_kernel<D, GMAX>,
+  err = cudaFuncSetAttribute(flash_decode_split_kernel<D, GMAX, T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_bytes<D, GMAX>(GMAX));
+                             (int)smem_bytes<D, GMAX, T>(GMAX));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_decode_split_kernel<D, GMAX>,
+  err = cudaFuncSetAttribute(flash_decode_split_kernel<D, GMAX, T>,
                              cudaFuncAttributeNonPortableClusterSizeAllowed,
                              1);
   if (err == cudaSuccess) done.fetch_or(bit);
   return err;
 }
 
-template <int D, int GMAX>
-int launch(const float* q, const float* k, const float* v, float* o,
-           float* lse, int B, int Hkv, int G, int S, int range, float scale,
+template <int D, int GMAX, typename T>
+int launch(const float* q, const T* k, const T* v, float* o, float* lse,
+           int B, int Hkv, int G, int S, int range, float scale,
            cudaStream_t stream) {
-  cudaError_t err = prepare<D, GMAX>();
+  cudaError_t err = prepare<D, GMAX, T>();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = smem_bytes<D, GMAX>(G);
+  const size_t smem = smem_bytes<D, GMAX, T>(G);
   for (int b0 = 0; b0 < B; b0 += MAX_GRID_Z) {
     const int nb = (B - b0) < MAX_GRID_Z ? (B - b0) : MAX_GRID_Z;
     const size_t qo = (size_t)b0 * Hkv * G;
-    flash_decode_split_kernel<D, GMAX>
+    flash_decode_split_kernel<D, GMAX, T>
         <<<dim3(CS, Hkv, nb), NW * 32, smem, stream>>>(
             q + qo * D, k + (size_t)b0 * Hkv * S * D,
             v + (size_t)b0 * Hkv * S * D, o + qo * D, lse + qo, Hkv, G, S,
@@ -353,17 +403,18 @@ int launch(const float* q, const float* k, const float* v, float* o,
 
 // dynamic shared memory of a block and the clusters the card holds at
 // once, for G query heads per KV head
-template <int D, int GMAX>
+template <int D, int GMAX, typename T>
 int describe(int G, int* smem, int* resident) {
-  *smem = (int)smem_bytes<D, GMAX>(G);
-  cudaError_t err = prepare<D, GMAX>();
+  *smem = (int)smem_bytes<D, GMAX, T>(G);
+  cudaError_t err = prepare<D, GMAX, T>();
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(CS, 1, 1);
   config.blockDim = dim3(NW * 32, 1, 1);
   config.dynamicSmemBytes = *smem;
   return static_cast<int>(cudaOccupancyMaxActiveClusters(
-      resident, (const void*)flash_decode_split_kernel<D, GMAX>, &config));
+      resident, (const void*)flash_decode_split_kernel<D, GMAX, T>,
+      &config));
 }
 
 template <int D_, int GMAX_>
@@ -393,16 +444,15 @@ int with_variant(int D, int G, F f) {
   }
 }
 
-}  // namespace
-
 // o (B,Hq,D), lse (B,Hq) = one-token attention of q (B,Hq,D) over
-// k, v (B,Hkv,S,D); all f32, contiguous, 16-byte aligned.  D in
-// {32, 64, 128}, Hq = G * Hkv with G <= 8, S >= 1; block r of a cluster
-// takes keys [r range, (r + 1) range), and CS * range must cover S.
-extern "C" int bddt_flash_decode(const float* q, const float* k,
-                                 const float* v, float* o, float* lse,
-                                 int B, int Hq, int Hkv, int S, int D,
-                                 int range, float scale, void* stream) {
+// k, v (B,Hkv,S,D) of element type T; q, o and lse f32; all contiguous,
+// 16-byte aligned.  D in {32, 64, 128}, Hq = G * Hkv with G <= 8, S >= 1;
+// block r of a cluster takes keys [r range, (r + 1) range), and CS * range
+// must cover S.
+template <typename T>
+int entry(const float* q, const T* k, const T* v, float* o, float* lse,
+          int B, int Hq, int Hkv, int S, int D, int range, float scale,
+          void* stream) {
   if (B < 1 || Hkv < 1 || S < 1 || Hq % Hkv != 0 || range < 1 ||
       (long long)CS * range < S)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -410,17 +460,43 @@ extern "C" int bddt_flash_decode(const float* q, const float* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_variant(D, G, [&](auto var) {
     using V = decltype(var);
-    return launch<V::D, V::GMAX>(q, k, v, o, lse, B, Hkv, G, S, range,
-                                 scale, s);
+    return launch<V::D, V::GMAX, T>(q, k, v, o, lse, B, Hkv, G, S, range,
+                                    scale, s);
   });
 }
 
+}  // namespace
+
+// K and V in f32
+extern "C" int bddt_flash_decode(const float* q, const float* k,
+                                 const float* v, float* o, float* lse,
+                                 int B, int Hq, int Hkv, int S, int D,
+                                 int range, float scale, void* stream) {
+  return entry<float>(q, k, v, o, lse, B, Hq, Hkv, S, D, range, scale,
+                      stream);
+}
+
+// K and V in bf16, converted to f32 where they are used
+extern "C" int bddt_flash_decode_bf16(const float* q, const __nv_bfloat16* k,
+                                      const __nv_bfloat16* v, float* o,
+                                      float* lse, int B, int Hq, int Hkv,
+                                      int S, int D, int range, float scale,
+                                      void* stream) {
+  return entry<__nv_bfloat16>(q, k, v, o, lse, B, Hq, Hkv, S, D, range,
+                              scale, stream);
+}
+
 // The dynamic shared memory of a block and the clusters the card holds at
-// once, for G query heads per KV head at head dim D; 0 on success
-extern "C" int bddt_flash_decode_describe(int G, int D, int* smem,
-                                          int* resident) {
+// once, for G query heads per KV head at head dim D with K and V of
+// kv_bytes bytes an element (4: f32, 2: bf16); 0 on success
+extern "C" int bddt_flash_decode_describe(int G, int D, int kv_bytes,
+                                          int* smem, int* resident) {
+  if (kv_bytes != 4 && kv_bytes != 2)
+    return static_cast<int>(cudaErrorInvalidValue);
   return with_variant(D, G, [&](auto var) {
     using V = decltype(var);
-    return describe<V::D, V::GMAX>(G, smem, resident);
+    return kv_bytes == 4
+               ? describe<V::D, V::GMAX, float>(G, smem, resident)
+               : describe<V::D, V::GMAX, __nv_bfloat16>(G, smem, resident);
   });
 }

@@ -4,8 +4,9 @@ Both packages hand state over as plain data, so neither imports the
 other: tiles as ``{tile index: numpy array}`` (what
 ``np.asarray(ba.get_tile(idx))`` reads from a ``repro`` ``BlockArray``),
 configuration as a dict of ``RuntimeConfig`` fields
-(``dataclasses.asdict`` of a ``repro`` config), and model weights as the
-reference's parameter pytree of numpy arrays
+(``dataclasses.asdict`` of a ``repro`` config; its ``SCCParams`` as a
+dict of fields too), and model weights as the reference's parameter
+pytree of numpy arrays
 (``jax.tree_util.tree_map(np.asarray, params)``).  The parity tests build
 both packages' inputs through these functions.
 """
@@ -20,6 +21,7 @@ import torch
 
 from .core.api import RuntimeConfig
 from .core.blocks import BlockArray
+from .core.costmodel import SCCParams
 from .models.transformer import Decoder, tree, tree_map
 
 __all__ = ["blockarray_from_numpy", "tiles_to_numpy", "config_from_reference",
@@ -53,9 +55,19 @@ def tiles_to_numpy(ba: BlockArray) -> dict[tuple, np.ndarray]:
             for idx in ba.block_indices()}
 
 
-# fields whose reference values are objects of the JAX package; only
-# their "unset" values carry across
-_OBJECT_FIELDS = ("sim_cost_fn", "sim_params")
+def _sim_params_from_reference(params) -> SCCParams:
+    """The port's ``SCCParams`` equal to a reference ``SCCParams``, given
+    as the object or as its fields (``dataclasses.asdict`` turns a
+    reference configuration's ``sim_params`` into a dict); field by field,
+    raising on a field the port does not know."""
+    fields = params if isinstance(params, Mapping) else {
+        f.name: getattr(params, f.name)
+        for f in dataclasses.fields(params)}
+    known = {f.name for f in dataclasses.fields(SCCParams)}
+    unknown = sorted(set(fields) - known)
+    if unknown:
+        raise ValueError(f"unknown SCCParams fields {unknown}")
+    return SCCParams(**fields)
 
 
 def config_from_reference(fields: Mapping[str, object]) -> RuntimeConfig:
@@ -63,8 +75,11 @@ def config_from_reference(fields: Mapping[str, object]) -> RuntimeConfig:
     as its fields.  Enum members become their strings; a tracker carries
     across as a spec string only (a reference tracker instance writes
     reference events); ``device`` may be among the fields (the port's
-    one extra field, ``"cuda"`` when absent).  Raises on a field the port
-    does not know or a value it cannot take."""
+    one extra field, ``"cuda"`` when absent); ``sim_params`` carries
+    across field by field.  A ``sim_cost_fn`` callable does not: it is
+    called with descriptors of the package it was written for, whose
+    regions and bodies are JAX arrays and functions.  Raises on a field
+    the port does not know or a value it cannot take."""
     known = {f.name for f in dataclasses.fields(RuntimeConfig)}
     unknown = sorted(set(fields) - known)
     if unknown:
@@ -73,9 +88,13 @@ def config_from_reference(fields: Mapping[str, object]) -> RuntimeConfig:
     for name, value in fields.items():
         if isinstance(value, enum.Enum):
             value = value.value
-        if name in _OBJECT_FIELDS and value is not None:
-            raise ValueError(f"{name} holds a reference object; it has no "
-                             "counterpart in the port yet")
+        if name == "sim_cost_fn" and value is not None:
+            raise ValueError(
+                "sim_cost_fn holds a reference cost function, which reads "
+                "the reference's task descriptors (JAX arrays and bodies); "
+                "pass a port cost function, or None for FlopcountCost")
+        if name == "sim_params" and value is not None:
+            value = _sim_params_from_reference(value)
         if name == "tracker" and not (value is None or
                                       isinstance(value, str)):
             raise ValueError("tracker carries across as a spec string or "

@@ -16,6 +16,11 @@ with its own running max, sum and accumulator; the warps' partials merge
 in shared memory and the blocks' on the cluster's first block through
 distributed shared memory, by the exact log-sum-exp rule, in one launch.
 
+K and V may be float32 or bfloat16 (both the same), as on the TPU,
+whose kernel casts each K/V block to f32: the bf16 instantiation keeps
+bf16 in its shared-memory rings and converts each element to f32 where
+it is used, so every sum is f32.  q, o and lse are f32.
+
 The wrapper runs the plain version (``ref.decode_partial``) for tensors
 on the CPU and launches the kernel for tensors on a CUDA device, and
 counts the launches in ``flash_decode.launches``.
@@ -29,11 +34,12 @@ from .. import _build
 from . import ref
 
 __all__ = ["flash_decode", "flash_decode_plain", "SUPPORTED_HEAD_DIMS",
-           "MAX_GROUP", "CLUSTER_SIZE", "KEYS_PER_STAGE", "WARP_KEYS",
-           "split"]
+           "MAX_GROUP", "KV_DTYPES", "CLUSTER_SIZE", "KEYS_PER_STAGE",
+           "WARP_KEYS", "split", "occupancy"]
 
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 8                       # query heads per KV head
+KV_DTYPES = (torch.float32, torch.bfloat16)   # K and V on the card
 CLUSTER_SIZE = 16                   # blocks per (batch row, KV head)
 KEYS_PER_STAGE = 32                 # keys of one block stage
 WARP_KEYS = 8                       # ... of which each of 4 warps takes 8
@@ -52,24 +58,27 @@ def split(s: int) -> tuple[int, int]:
 def _lib():
     """The built library, its entries' C signatures set once."""
     lib = _build.load("flash_decode")
-    lib.bddt_flash_decode.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 +
-        [ctypes.c_float, ctypes.c_void_p])
-    lib.bddt_flash_decode.restype = ctypes.c_int
+    for entry in (lib.bddt_flash_decode, lib.bddt_flash_decode_bf16):
+        entry.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 +
+                          [ctypes.c_float, ctypes.c_void_p])
+        entry.restype = ctypes.c_int
     lib.bddt_flash_decode_describe.argtypes = (
-        [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2)
+        [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2)
     lib.bddt_flash_decode_describe.restype = ctypes.c_int
     return lib
 
 
-def occupancy(g: int, d: int) -> tuple[int, int]:
+def occupancy(g: int, d: int,
+              kv_dtype: torch.dtype = torch.float32) -> tuple[int, int]:
     """``(dynamic shared-memory bytes of a block, clusters the card holds
     at once)`` of the built kernel with ``g`` query heads per KV head at
-    head dim ``d``."""
+    head dim ``d`` and K/V in ``kv_dtype``."""
+    if kv_dtype not in KV_DTYPES:
+        raise ValueError(f"K/V dtype {kv_dtype} not in {KV_DTYPES}")
     smem, resident = ctypes.c_int(), ctypes.c_int()
     _build.check(_lib().bddt_flash_decode_describe(
-        g, d, ctypes.byref(smem), ctypes.byref(resident)),
-        "flash_decode occupancy")
+        g, d, torch.finfo(kv_dtype).bits // 8, ctypes.byref(smem),
+        ctypes.byref(resident)), "flash_decode occupancy")
     return smem.value, resident.value
 
 
@@ -100,9 +109,10 @@ def _check_shapes(q, k, v, bk: int) -> None:
 def flash_decode(q, k, v, scale: float | None = None, bk: int = 512):
     """One-token attention of q (B, Hq, D) over k, v (B, Hkv, S, D):
     ``(o (B, Hq, D) f32, lse (B, Hq) f32)``.  The plain version on the
-    CPU, one kernel launch on CUDA (float32, contiguous, 16-byte aligned,
-    D in :data:`SUPPORTED_HEAD_DIMS`, at most :data:`MAX_GROUP` query
-    heads per KV head).  ``bk = min(bk, S)`` must divide S, the
+    CPU, one kernel launch on CUDA (q float32, k and v both float32 or
+    both bfloat16, contiguous, 16-byte aligned, D in
+    :data:`SUPPORTED_HEAD_DIMS`, at most :data:`MAX_GROUP` query heads per
+    KV head).  ``bk = min(bk, S)`` must divide S, the
     reference's block contract; the kernel splits S across the blocks of
     a cluster as :func:`split` says."""
     _check_shapes(q, k, v, bk)
@@ -115,9 +125,11 @@ def flash_decode(q, k, v, scale: float | None = None, bk: int = 512):
     if kinds != {"cuda"}:
         raise ValueError(f"operands on mixed or unsupported devices: "
                          f"{sorted(str(x.device) for x in (q, k, v))}")
+    if k.dtype not in KV_DTYPES:
+        raise ValueError(f"k: expected one of {KV_DTYPES}, got {k.dtype}")
     _build.require(q, "q", (b, hq, d))
-    _build.require(k, "k", (b, hkv, s, d), device=q.device)
-    _build.require(v, "v", (b, hkv, s, d), device=q.device)
+    _build.require(k, "k", (b, hkv, s, d), dtype=k.dtype, device=q.device)
+    _build.require(v, "v", (b, hkv, s, d), dtype=k.dtype, device=q.device)
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {SUPPORTED_HEAD_DIMS}")
     if hq // hkv > MAX_GROUP:
@@ -128,7 +140,9 @@ def flash_decode(q, k, v, scale: float | None = None, bk: int = 512):
             raise ValueError(f"{name}: expected a 16-byte aligned tensor")
     o = torch.empty((b, hq, d), dtype=torch.float32, device=q.device)
     lse = torch.empty((b, hq), dtype=torch.float32, device=q.device)
-    rc = _lib().bddt_flash_decode(
+    entry = (_lib().bddt_flash_decode if k.dtype == torch.float32
+             else _lib().bddt_flash_decode_bf16)
+    rc = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), b, hq, hkv, s, d, split(s)[1], scale,
         _build.stream_handle(q.device))

@@ -185,6 +185,38 @@ def test_cuda_flash_decode_matches_plain(cuda_device, b, hq, hkv, s, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,s,d", [
+    (1, 1, 1, 512, 128),          # the serve path's per-task shape
+    (3, 6, 2, 77, 64),            # G = 3, ragged S
+    (2, 8, 2, 1000, 32),
+    (1, 1, 1, 1, 128),            # S = 1
+    (2, 16, 2, 300, 64),          # G = 8 at D 64
+    (4, 32, 8, 4096, 128),        # Mistral-NeMo-12B's GQA width
+])
+def test_cuda_flash_decode_bf16_kv_matches_plain(cuda_device, b, hq, hkv, s,
+                                                 d):
+    """K and V in bf16, q in f32: the kernel converts each element to f32
+    where it uses it, as the plain version upcasts, so the two differ by
+    the order of their f32 sums only."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    q = torch.randn((b, hq, d), generator=g, device=cuda_device)
+    k, v = (torch.randn((b, hkv, s, d), generator=g,
+                        device=cuda_device).to(torch.bfloat16)
+            for _ in range(2))
+    before = fd_kernel.flash_decode.launches
+    o, lse = fd_kernel.flash_decode(q, k, v, bk=s)
+    torch.cuda.synchronize()
+    assert fd_kernel.flash_decode.launches == before + 1
+    assert o.dtype == lse.dtype == torch.float32
+    wo, wl = fd_kernel.flash_decode_plain(q, k, v, d ** -0.5)
+    torch.testing.assert_close(o, wo, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(lse, wl, rtol=2e-5, atol=2e-5)
+    smem32, _ = fd_kernel.occupancy(hq // hkv, d)
+    smem16, resident = fd_kernel.occupancy(hq // hkv, d, torch.bfloat16)
+    assert smem16 < smem32 and resident >= 1
+
+
+@pytest.mark.cuda
 def test_cuda_flash_decode_serve_shape_is_one_launch(cuda_device):
     """The serve path's per-task call (q 1x1x128 against one 512-row KV
     tile) launches one kernel, split over a 16-block cluster of 32 keys a
@@ -264,6 +296,17 @@ def test_cuda_new_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         fd_kernel.flash_decode(q, k.mT.contiguous().mT, k)  # not contiguous
     with pytest.raises(ValueError):
         fd_kernel.flash_decode(q, k, k.cpu())               # mixed devices
+    with pytest.raises(ValueError):
+        fd_kernel.flash_decode(q, k.half(), k.half())       # f16 K/V
+    with pytest.raises(ValueError):
+        fd_kernel.flash_decode(q, k.bfloat16(), k)          # K, V differ
+    with pytest.raises(ValueError):
+        fd_kernel.flash_decode(q.bfloat16(), k.bfloat16(), k.bfloat16())
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    with pytest.raises(NotImplementedError, match="mask"):
+        fd_ops.decode_partial(q, k.bfloat16(), k.bfloat16(),
+                              mask=torch.ones((1, 64), dtype=torch.bool,
+                                              device=cuda_device))
     with pytest.raises(ValueError, match="head dim"):
         fd_kernel.flash_decode(torch.zeros(1, 1, 96, device=cuda_device),
                                torch.zeros(1, 1, 8, 96, device=cuda_device),

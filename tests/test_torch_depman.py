@@ -14,7 +14,8 @@ The port of ``tests/test_depman.py`` and ``tests/test_mpb_stress.py``:
   port's ``ShardedDependenceManager`` (batch lines 1 and 4, both pumps,
   1, 2 and 4 homes) gives the same dependence sets, ``deps_found``,
   ``blocks_walked``, wire counts and admissions, and the port's
-  ``traffic_log`` reconciles through ``repro.core.sim.predict_dep_traffic``;
+  ``traffic_log`` reconciles through ``repro.core.sim.predict_dep_traffic``
+  and through the port's own ``repro_torch.core.sim.predict_dep_traffic``;
 * the five apps: identical staged wave schedules under central,
   sharded-sync and sharded-threaded, equal to the reference's, and equal
   outputs of the sequential, host and staged executors under either
@@ -42,6 +43,7 @@ import repro_torch
 from repro_torch import (In, InOut, Out, RuntimeConfig, ShardedDependenceManager,
                          TaskRuntime, apps, task)
 from repro_torch.core import depman, executor, graph, placement
+from repro_torch.core import sim as port_sim
 from repro_torch.core.deps import DependenceAnalyzer
 from repro_torch.core.depman import DepMessage
 from repro_torch.core.graph import DescriptorPool, TaskGraph
@@ -526,11 +528,14 @@ def test_manager_counts_match_reference(homes, batch_lines, pump, stream):
         assert port[fld] == ref[fld], fld
     assert port["deps_found"] > 0
     # the port's recorded logical stream, replayed through the
-    # reference's flush-policy model, predicts the port's wire counts
+    # reference's flush-policy model and through the port's own copy of
+    # it, predicts the port's wire counts
     pred = predict_dep_traffic(port_mgr.traffic_log, batch_lines,
                                port_mgr.traffic_deps)
     assert pred["dep_batches"] == port_mgr.dep_batches
     assert pred["dep_lines"] == port_mgr.dep_lines
+    assert port_sim.predict_dep_traffic(port_mgr.traffic_log, batch_lines,
+                                        port_mgr.traffic_deps) == pred
 
 
 def test_central_analyzers_match_on_the_mixed_stream():

@@ -71,10 +71,32 @@ def test_config_fields_round_trip():
     assert repro.RuntimeConfig(**back).validate() == ref.validate()
 
 
+def test_config_carries_sim_params_field_by_field():
+    """A reference ``SCCParams`` (the object, or its fields as
+    ``dataclasses.asdict`` of a configuration gives them) becomes the
+    port's, field for field, and the runtime's DES runs on it."""
+    from repro.core.costmodel import SCCParams as RefParams
+    from repro_torch.core.costmodel import SCCParams
+    slow = dataclasses.replace(RefParams(), freq_hz=133e6,
+                               contention_alpha=0.3)
+    ref = repro.RuntimeConfig(executor="sim", sim_params=slow)
+    for fields in ({f.name: getattr(ref, f.name)
+                    for f in dataclasses.fields(ref)},
+                   dataclasses.asdict(ref)):
+        port = config_from_reference({**fields, "device": "cpu"})
+        assert type(port.sim_params) is SCCParams
+        assert dataclasses.asdict(port.sim_params) == \
+            dataclasses.asdict(slow)
+        with TaskRuntime(port) as rt:
+            assert rt._exec.params == port.sim_params
+    with pytest.raises(ValueError, match="SCCParams fields"):
+        config_from_reference({"sim_params": {"no_such_field": 1.0}})
+
+
 def test_config_refuses_what_the_port_cannot_take():
     with pytest.raises(ValueError, match="unknown"):
         config_from_reference({"no_such_field": 1})
-    with pytest.raises(ValueError, match="sim_cost_fn"):
+    with pytest.raises(ValueError, match="sim_cost_fn.*reference"):
         config_from_reference({"sim_cost_fn": lambda td: (0, 0)})
     with pytest.raises(ValueError, match="tracker"):
         config_from_reference({"tracker": repro.obs.InMemoryTracker()})

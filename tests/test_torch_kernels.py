@@ -199,6 +199,33 @@ def test_flash_decode_plain_matches_pallas(hq, hkv, s):
                                rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("hq,hkv,s", [(8, 2, 512), (4, 4, 256),
+                                      (16, 8, 1024)])
+def test_flash_decode_plain_matches_pallas_on_bf16_kv(hq, hkv, s):
+    """K and V in bf16 (q in f32): the TPU kernel casts each K/V block to
+    f32, the plain version upcasts; both round the same f32 inputs to
+    bf16 the same way (to nearest even), so they agree at the f32
+    tolerance.  On the CPU the wrapper takes bf16 K/V too."""
+    rng = np.random.default_rng(8)
+    b, d = 2, 64
+    q, k, v = _randn(rng, b, hq, d), _randn(rng, b, hkv, s, d), \
+        _randn(rng, b, hkv, s, d)
+    tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (k, v))
+    jk, jv = (jnp.asarray(x).astype(jnp.bfloat16) for x in (k, v))
+    np.testing.assert_array_equal(tk.float().numpy(),
+                                  np.asarray(jk.astype(jnp.float32)))
+    o, lse = fd_ops.decode_partial(torch.from_numpy(q), tk, tv, bk=128)
+    want_o, want_lse = ref_fd_kernel.flash_decode_pallas(
+        jnp.asarray(q), jk, jv, bk=128, interpret=True)
+    assert o.dtype == lse.dtype == torch.float32
+    np.testing.assert_allclose(o.numpy(), np.asarray(want_o),
+                               rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse),
+                               rtol=2e-5, atol=2e-5)
+    wo, wl = fd_kernel.flash_decode(torch.from_numpy(q), tk, tv, bk=128)
+    assert torch.equal(wo, o) and torch.equal(wl, lse)
+
+
 @pytest.mark.parametrize("n_shards", [1, 2, 4, 8])
 def test_flash_decode_shard_combine_is_exact(n_shards):
     """LSE-combining partials over any sequence split equals the full

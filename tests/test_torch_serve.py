@@ -142,7 +142,9 @@ class TestServeConfig:
             ServeConfig(checkpoint_every=5)
 
     def test_sim_executor_refused(self):
-        with pytest.raises(NotImplementedError, match="sim"):
+        """The sim executor is ported and never computes task values, so
+        the session refuses it, as the reference's does."""
+        with pytest.raises(ValueError, match="timing-only"):
             Session(_cfg("sim"))
 
     def test_runtime_and_config_are_exclusive(self):
