@@ -79,13 +79,29 @@ Phases, each of which must pass (any failure exits non-zero):
    lines.  ``[depman]`` lines give wall, spawn, barrier and pump seconds
    and the wire counts.  Then matmul and Cholesky on the host executor under
    central, sync and threaded, outputs within the parity tolerance.
-8. Fuzz: the 60 seeds of ``repro_torch.fuzz_graphs`` on sequential (the
-   oracle), staged, host, staged with the kernels, and staged under the
-   sharded managers with each pump: outputs within 1e-4 (the sharded
-   runs bit-identical to central's), equal dependence counts across the
-   staged paths, equal wire counts across the pumps, and one GEMM launch
-   (8x8x8 tiles) per ``_gemm`` wave dispatch; one ``[fuzz]`` line.
-9. Sim: the five apps at the §4.2 sizes under ``executor="sim"``,
+8. Sharded (main path 1 on the sharded executor): the five apps at the
+   §4.2 sizes, ``executor="sharded"``, the wave kernels asked for,
+   striped over 4 homes, with no mesh (phase 4's schedule, counts,
+   fallbacks and launches), on ``single_device_mesh()`` (every grouped
+   wave split per device as ``shard_map``, every group a
+   ``sharded_mesh`` fallback, no tile moved, nothing staged) and on 4
+   logical devices of the card (every tile on
+   ``device_assignment(4)[home]``, nothing staged); home traffic equal
+   in the three, and Black-Scholes launched 1, 1 and 4 times, no wave
+   kernel under a mesh.  ``[sharded]`` lines give wall, spawn and GC
+   seconds, the sharded dispatches, moves, staged and home bytes and
+   the dispatch wall by mode.  Then the reference's striped gemm on 4
+   and on 2 logical devices (bit-identical to the sequential run;
+   measured moves equal to the cross-home bytes, ``g^3/2`` of them on
+   2) and its uneven 5-task wave on 4 (``vmap_device``).
+9. Fuzz: the 60 seeds of ``repro_torch.fuzz_graphs`` on sequential (the
+   oracle), staged, sharded (no mesh), host, staged with the kernels,
+   and staged under the sharded managers with each pump: outputs within
+   1e-4 (the sharded managers' runs bit-identical to central's), equal
+   dependence counts across the deferred paths, equal wire counts
+   across the pumps, and one GEMM launch (8x8x8 tiles) per ``_gemm``
+   wave dispatch; one ``[fuzz]`` line.
+10. Sim: the five apps at the §4.2 sizes under ``executor="sim"``,
    ``kernel_backend="pallas"``, ``device="cuda"`` (the DES; no task body
    runs).  ``[sim]`` lines give the predicted makespan, the sequential
    time, the predicted speedup and tile moves, spawn seconds and the
@@ -93,18 +109,19 @@ Phases, each of which must pass (any failure exits non-zero):
    reason must equal phase 4's; no wrapper may count a launch, and a
    profiler window over one sim run must hold no kernel of ``csrc/``.
    ``calibrate()`` must pass its trend checks.
-10. Obs: a staged matmul run (§4.2 size, wave kernels) traced to JSONL
+11. Obs: a staged matmul run (§4.2 size, wave kernels) traced to JSONL
    and exported with ``export_chrome_trace``: a valid document with one
    wave span per wave, and its ``summary_table`` on ``[obs]`` lines; then
    the same run with ``profile_waves=True`` inside ``profile_session
    ("build/obs")``: every GEMM kernel of the run in the written trace,
    launched inside a ``bddt/staged/wave*`` range.
-11. Parity: at a small size, ``executor="sequential"`` against staged with
+12. Parity: at a small size, ``executor="sequential"`` against staged with
    the wave kernels and against host, all five apps, within each app's
    tolerance.
 
 Then one JSON line of kernel results (each row's ``launches`` from phase
-4, 5 or 6, and in ``launches_by_path`` those of phases 7 and 8), the card
+4, 5 or 6, and in ``launches_by_path`` those of phases 7, 8 and 9), the
+card
 line again, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -746,12 +763,229 @@ def depman_phase(dev, central: dict[str, dict]) -> dict[str, int]:
     return total
 
 
+def sharded_phase(dev, central: dict[str, dict]) -> dict[str, int]:
+    """Main path 1 on the sharded executor: the five apps at §4.2 sizes,
+    ``executor="sharded"``, ``kernel_backend="pallas"``, striped over 4
+    homes, in three modes — no mesh (must reproduce phase 4's schedule,
+    counts, fallbacks and launches), ``single_device_mesh()`` (every
+    grouped wave dispatched per device as ``shard_map``, every group a
+    ``sharded_mesh`` fallback, nothing staged or moved, Black-Scholes
+    launched once and no wave kernel) and 4 logical devices on the card
+    (every tile on ``device_assignment(4)[home]``, nothing staged,
+    Black-Scholes launched once per device).  Home traffic is the same in
+    all three.  Then the reference's 4-device programs (striped gemm bit
+    for bit the sequential run's; an uneven 5-task wave through
+    ``vmap_device``) and its 2-device residency program
+    (``bytes_moved == cross_home_bytes == g^3/2 * 4096``).  Returns the
+    launches per kernel."""
+    import contextlib
+
+    import numpy as np
+    import torch
+    from repro_torch import RuntimeConfig, TaskRuntime, apps, dist, task
+    from repro_torch.core.placement import device_assignment
+    from repro_torch.obs import InMemoryTracker
+    from repro_torch.profile_apps import GCTimer
+
+    wave, wrappers = app_wrappers()
+    total = dict.fromkeys(wrappers, 0)
+    meshes = {"none": None,
+              "mesh1": dist.single_device_mesh(device=dev),
+              "mesh4": dist.Mesh(dist.logical_devices(4, dev), ("data",))}
+    bs_launches = {"none": 1, "mesh1": 1, "mesh4": 4}
+    for name in APP_NAMES:
+        ref = central[name]
+        home_bytes = None
+        for mode, mesh in meshes.items():
+            trk = InMemoryTracker()
+            with (dist.use_mesh(mesh) if mesh is not None
+                  else contextlib.nullcontext()) as ctx:
+                rt = TaskRuntime(RuntimeConfig(
+                    executor="sharded", kernel_backend="pallas",
+                    device=str(dev), placement="striped", n_controllers=4,
+                    tracker=trk))
+                schedule = record_waves(rt)
+                for w in wrappers.values():
+                    w.launches = 0
+                torch.cuda.synchronize()
+                with GCTimer() as gct:
+                    t0 = time.perf_counter()
+                    apps.APPS[name](rt, **apps.PAPER_SIZES[name])
+                    torch.cuda.synchronize()      # the app self-verifies
+                    wall = time.perf_counter() - t0
+                launches = {k: w.launches for k, w in wrappers.items()}
+                misplaced = 0
+                if mesh is not None:
+                    devmap = device_assignment(4, ctx)
+                    misplaced = sum(
+                        ba.tile_device(idx) != devmap[h % len(devmap)]
+                        for ba in rt._arrays for idx, h in ba.home.items())
+                rt.shutdown()
+            st = rt.stats()
+            reasons: dict[str, int] = {}
+            for e in trk.events_of("kernel_dispatch"):
+                if e.data["backend"] != "pallas":
+                    reasons[e.data["reason"]] = \
+                        reasons.get(e.data["reason"], 0) + 1
+            dispatch_s: dict[str, float] = {}
+            grouped_modes = set()
+            for e in trk.events_of("dispatch"):
+                m = e.data["mode"]
+                dispatch_s[m] = dispatch_s.get(m, 0.0) + e.data["wall_s"]
+                if e.data["tasks"] > 1:
+                    grouped_modes.add(m)
+            print("[sharded] " + json.dumps(dict(
+                app=name, mode=mode, wall_s=wall, spawn_s=st.spawn_time_s,
+                barrier_s=st.barrier_time_s, gc_s=gct.seconds,
+                staged_wall_s=ref["wall_s"], waves=st.waves,
+                grouped_dispatches=st.grouped_dispatches,
+                sharded_dispatches=st.sharded_dispatches,
+                tile_moves=st.tile_moves, bytes_moved=st.bytes_moved,
+                bytes_staged=st.bytes_staged,
+                cross_home_bytes=st.cross_home_bytes,
+                local_home_bytes=st.local_home_bytes,
+                kernel_dispatches=st.kernel_dispatches,
+                fallbacks_by_reason=reasons,
+                dispatch_wall_s_by_mode=dispatch_s,
+                misplaced_tiles=misplaced, launches=launches)), flush=True)
+            what = f"sharded {name} {mode}"
+            for k, v in launches.items():
+                total[k] += v
+            check(launches["black_scholes"] ==
+                  (bs_launches[mode] if name == "black_scholes" else 0),
+                  f"{what}: black_scholes launched "
+                  f"{launches['black_scholes']} times")
+            if home_bytes is None:
+                home_bytes = (st.cross_home_bytes, st.local_home_bytes)
+            check((st.cross_home_bytes, st.local_home_bytes) == home_bytes,
+                  f"{what}: home bytes {st.cross_home_bytes}, "
+                  f"{st.local_home_bytes} != no mesh's {home_bytes}")
+            if mesh is None:
+                check(schedule == ref["schedule"],
+                      f"{what}: wave schedule differs from phase 4's")
+                for fld in SCHEDULE_FIELDS:
+                    check(getattr(st, fld) == ref[fld],
+                          f"{what}: {fld} {getattr(st, fld)} != phase 4's "
+                          f"{ref[fld]}")
+                check(launches == ref["launches"],
+                      f"{what}: launches {launches} != phase 4's "
+                      f"{ref['launches']}")
+                check(reasons == ref["fallbacks_by_reason"],
+                      f"{what}: fallbacks {reasons} != phase 4's "
+                      f"{ref['fallbacks_by_reason']}")
+                check(st.sharded_dispatches == 0,
+                      f"{what}: {st.sharded_dispatches} sharded dispatches")
+                continue
+            check(all(launches[k] == 0 for k in wave),
+                  f"{what}: a wave kernel launched under a mesh {launches}")
+            check(st.kernel_dispatches == 0 and
+                  set(reasons) <= {"sharded_mesh"} and
+                  st.kernel_fallbacks == ref["kernel_dispatches"] +
+                  ref["kernel_fallbacks"],
+                  f"{what}: every group must fall back as sharded_mesh "
+                  f"({reasons})")
+            check(st.bytes_staged == 0, f"{what}: {st.bytes_staged} bytes "
+                  "staged")
+            check(misplaced == 0, f"{what}: {misplaced} tiles off their "
+                  "home device")
+            check(st.grouped_dispatches > 0 and
+                  grouped_modes <= ({"shard_map"} if mode == "mesh1" else
+                                    {"shard_map", "vmap_device"}),
+                  f"{what}: grouped waves dispatched as {grouped_modes}")
+            if mode == "mesh1":
+                check(st.tile_moves == 0 and
+                      st.sharded_dispatches == st.grouped_dispatches,
+                      f"{what}: {st.tile_moves} moves on one device, "
+                      f"{st.sharded_dispatches} of {st.grouped_dispatches} "
+                      "grouped waves split per device")
+
+    # the reference's multi-device programs on logical devices
+    @task(inout="c", in_=("a", "b"))
+    def gemm(c, a, b):
+        return c + a @ b
+
+    @task(in_="halo", out="dest")
+    def avg(halo, dest=None):
+        return halo[:4] * 0.5 + halo[4:] * 0.5
+
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal((128, 128), dtype=np.float32)
+    b = rng.standard_normal((128, 128), dtype=np.float32)
+
+    def prog(rt, tile=32):
+        g = 128 // tile
+        with rt.scope():
+            A = rt.from_array(a, (tile, tile))
+            B = rt.from_array(b, (tile, tile))
+            C = rt.zeros((128, 128), (tile, tile))
+            for i in range(g):
+                for j in range(g):
+                    for k in range(g):
+                        gemm(C[i, j], A[i, k], B[k, j])
+            rt.barrier()
+            st = rt.stats()
+            return C.gather(), st
+
+    seq, _ = prog(TaskRuntime(RuntimeConfig(executor="sequential",
+                                            device=str(dev))))
+    g, block_bytes = 4, 32 * 32 * 4
+    for ndev in (4, 2):
+        mesh = meshes["mesh4"] if ndev == 4 else \
+            dist.Mesh(dist.logical_devices(2, dev), ("data",))
+        with dist.use_mesh(mesh):
+            rt = TaskRuntime(RuntimeConfig(
+                executor="sharded", placement="striped", n_controllers=ndev,
+                device=str(dev)))
+            got, st = prog(rt)
+        after = rt.stats()
+        gap = (got - seq).abs().max().item()
+        print("[sharded] " + json.dumps(dict(
+            program=f"gemm striped, {ndev} logical devices, {ndev} homes",
+            sharded_dispatches=st.sharded_dispatches,
+            tile_moves=st.tile_moves, bytes_moved=st.bytes_moved,
+            bytes_staged=st.bytes_staged,
+            cross_home_bytes=st.cross_home_bytes,
+            gather_bytes_moved=after.bytes_moved - st.bytes_moved,
+            max_abs_diff_to_sequential=gap)), flush=True)
+        check(torch.equal(got, seq), f"sharded gemm on {ndev} devices "
+              f"differs from the sequential run by {gap}")
+        check(st.sharded_dispatches == 4 and st.bytes_staged == 0 and
+              st.bytes_moved == st.cross_home_bytes > 0,
+              f"sharded gemm on {ndev} devices: {st}")
+        if ndev == 2:
+            check(st.cross_home_bytes == g ** 3 // 2 * block_bytes and
+                  st.tile_moves == g ** 3 // 2 and
+                  after.bytes_moved - st.bytes_moved ==
+                  g * g // 2 * block_bytes,
+                  f"sharded residency on 2 devices: {st}")
+    trk = InMemoryTracker()
+    with dist.use_mesh(meshes["mesh4"]):
+        with TaskRuntime(RuntimeConfig(executor="sharded", tracker=trk,
+                                       placement="striped", n_controllers=4,
+                                       device=str(dev))) as rt:
+            X = rt.full((24, 4), (4, 4), 1.0)    # 6 blocks on 4 devices
+            Y = rt.zeros((20, 4), (4, 4))
+            for i in range(5):                   # 5 % 4 != 0
+                avg(X[i:i + 2, 0], Y[i, 0])
+            rt.barrier()
+            ok = bool(torch.equal(Y.gather(), torch.ones(20, 4,
+                                                         device=dev)))
+    modes = [e.data["mode"] for e in trk.events_of("dispatch")]
+    print(f"[sharded] uneven 5-task wave on 4 logical devices: modes "
+          f"{modes}, tile_moves {rt.stats().tile_moves}, ok {ok}",
+          flush=True)
+    check(ok and "vmap_device" in modes,
+          f"sharded uneven wave: modes {modes}, ok {ok}")
+    return total
+
+
 def fuzz_phase(dev) -> int:
     """The 60-seed differential corpus (``repro_torch.fuzz_graphs``) on
-    the card, the sequential path as the oracle: staged, host, staged +
-    kernels, staged + sharded sync and threaded.  Outputs within
-    ``fuzz_graphs.CARD_TOL`` of the oracle (sharded bit-identical to central), the
-    dependence counts equal across the staged paths, equal wire counts
+    the card, the sequential path as the oracle: staged, sharded (no
+    mesh), host, staged + kernels, staged + sharded managers sync and
+    threaded.  Outputs within ``fuzz_graphs.CARD_TOL`` of the oracle (the
+    sharded managers' bit-identical to central's), the dependence
+    counts equal across the deferred paths, equal wire counts
     across the pumps, and the GEMM kernel launched once per ``_gemm``
     wave dispatch (8x8x8 tiles).  Returns its launches."""
     import torch
@@ -1272,6 +1506,7 @@ def main() -> int:
     launches["flash_decode"] = serve_phase(dev)
     launches["flash_attention"] = llm_phase(dev, card)
     by_path = {"depman": depman_phase(dev, central),
+               "sharded": sharded_phase(dev, central),
                "fuzz": {"matmul_batched": fuzz_phase(dev)}}
     sim_phase(dev, central)
     obs_phase(dev)

@@ -1,7 +1,7 @@
 """BDDT-SCC in PyTorch: block-level dynamic dependence analysis + task runtime.
 
 The port of :mod:`repro.core` (the JAX package, the reference) module by
-module, with tiles as torch tensors on one device:
+module, with tiles as torch tensors:
 
 * :mod:`api`        — the OmpSs front-end: @task footprints, futures, config
 * :mod:`blocks`     — the custom block allocator (BlockArray / Region / In-Out-InOut)
@@ -12,8 +12,11 @@ module, with tiles as torch tensors on one device:
 * :mod:`scheduler`  — the master's running/polling modes + lazy release
 * :mod:`executor`   — sequential (oracle) / host (master + worker threads) /
   staged (wavefront batching) execution
+* :mod:`sharded`    — home-aware mesh execution (owner-computes over the
+  ``repro_torch.dist`` mesh)
 * :mod:`wavekernel` — the registry of hand-written wave kernels
-* :mod:`placement`  — memory-controller striping (block homes)
+* :mod:`placement`  — memory-controller striping -> block-cyclic device
+  placement
 * :mod:`costmodel`  — SCC latency/contention model (Figs 3-4) + the H100
   roofline constants
 * :mod:`sim`        — discrete-event simulation of the SCC runtime

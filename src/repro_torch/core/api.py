@@ -228,15 +228,6 @@ def _check_choice(field: str, value, choices: tuple[str, ...]) -> str:
     return value
 
 
-#: executors this slice does not port, and the ROADMAP.md
-#: queue 1 item that brings each one; asking for them raises
-#: ``NotImplementedError`` instead of substituting another executor
-UNPORTED = {
-    ("executor", "sharded"):
-        "ROADMAP.md queue 1 item 9 (sharded executor and mesh layer)",
-}
-
-
 @dataclass(frozen=True)
 class RuntimeConfig:
     """Everything that shapes a :class:`~repro_torch.core.TaskRuntime`.
@@ -248,12 +239,12 @@ class RuntimeConfig:
 
     * ``executor``    — "host" (the default: master + worker threads over
       MPB rings), "sequential" (serial-elision oracle), "staged"
-      (wavefront batching) or "sim" (the timing-only DES: the real task
-      program's DAG replayed on the SCC cost model, ``core/sim.py``; no
-      task output is computed and no kernel launches).  "sharded" is a
-      valid spelling that this port does not run yet: the runtime raises
-      ``NotImplementedError`` naming its ``ROADMAP.md`` item
-      (:data:`UNPORTED`).
+      (wavefront batching), "sharded" (staged waves placed owner-computes
+      on the ambient ``repro_torch.dist`` mesh, tiles resident on their
+      home devices, ``core/sharded.py``; with no mesh it runs as
+      "staged") or "sim" (the timing-only DES: the real task program's
+      DAG replayed on the SCC cost model, ``core/sim.py``; no task output
+      is computed and no kernel launches).
     * ``n_workers`` / ``mpb_slots`` — worker count and per-worker MPB ring
       depth (§3.2).
     * ``pool_capacity`` — pre-allocated task-descriptor pool (§3.3).
@@ -268,7 +259,10 @@ class RuntimeConfig:
       envelope); validated, inert under "central".
     * ``policy``      — running-mode scheduling policy (§3.4).
     * ``placement`` / ``n_controllers`` — block -> memory-controller map.
-    * ``owner_skew_threshold`` — sharded executor only; validated, inert.
+    * ``owner_skew_threshold`` — sharded executor only: when > 0, a wave
+      group whose busiest owner home carries more than this multiple of
+      the mean load spills tasks to the least-loaded home
+      (``placement.rebalance_owners``); 0 (the default) disables it.
     * ``group_waves`` — staged executor: fuse identical tile tasks of a
       wavefront into one batched dispatch.
     * ``kernel_backend`` — how a grouped wave dispatches: ``"xla"`` (the

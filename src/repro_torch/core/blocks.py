@@ -14,6 +14,21 @@ a fresh output, and a store swaps the tile object.  A single-tile
 :meth:`Region.materialize` therefore hands out the stored tile itself, as
 the JAX package does with its immutable arrays.
 
+Residency (§3.2/§5): tiles are held behind a :class:`TileStore` backend.
+The default :class:`HostTileStore` keeps *uncommitted* tensors on the
+array's device — the single-device path.  :class:`DeviceTileStore` makes
+block *homes* physical: every tile is committed to the mesh device
+serving its home (``placement.device_assignment``), writes re-commit to
+the home, and reads that cross devices are *actual* copies — counted in
+the array's attached :class:`TileTraffic`.  A device here is a
+``repro_torch.dist.LogicalDevice``; several may share one torch device,
+so a tensor's location is the residency layer's record
+(:func:`device_of`), never its torch device, and a move between two
+logical devices is a real copy even on one card.  Assembly (``gather`` /
+``Region.materialize``) is destination-aware: tiles are pulled directly
+onto the device that consumes them, never staged through an intermediate
+device.
+
 Dtypes follow the JAX package's canonicalization with 64-bit mode off:
 float64 becomes float32, int64 int32, uint64 uint32 and complex128
 complex64, so tile dtypes, grouping keys and wave-kernel eligibility agree
@@ -42,6 +57,8 @@ __all__ = [
     "TileTraffic",
     "TileStore",
     "HostTileStore",
+    "DeviceTileStore",
+    "device_of",
     "canonical_dtype",
     "resolve_device",
     "dtype_name",
@@ -80,14 +97,57 @@ def dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
+# the attribute that records a committed tensor's logical device
+_LOCATION = "_bddt_device"
+
+
+def device_of(x):
+    """The logical device a *committed* tensor lives on, else None.
+
+    A tensor is committed when the residency layer placed it (a
+    :class:`DeviceTileStore` tile, a pulled operand) or an executor
+    recorded it as produced on a mesh device.  Host-store tiles and
+    values a caller hands in are uncommitted: they have no residency
+    obligation, so moving them is never charged — the reference's
+    committed/uncommitted rule, kept by this record rather than by the
+    tensor's torch device (which N logical devices may share)."""
+    return getattr(x, _LOCATION, None)
+
+
+def _locate(x, device):
+    """Record tensor ``x`` as living on logical ``device`` (None: leave
+    it uncommitted); returns ``x``."""
+    if device is not None:
+        setattr(x, _LOCATION, device)
+    return x
+
+
+def _place(x, device):
+    """``x`` committed to logical ``device``, as a tensor object of its
+    own: a copy when ``x`` is on another torch device or committed to
+    another logical device (a real move, even on one card), else a view
+    of ``x``'s storage (committing an uncommitted tensor in place)."""
+    if x.device != device.torch_device:
+        out = x.to(device.torch_device)
+    elif device_of(x) is not None:
+        out = x.clone()
+    else:
+        out = x.view_as(x)
+    return _locate(out, device)
+
+
 @dataclass
 class TileTraffic:
     """Measured tile movement, charged at the memory layer where transfers
     actually happen (executors read these into ``RuntimeStats``).
 
-    Every tile of this slice lives on the runtime's one device, so the
-    counters stay zero; they are kept so ``RuntimeStats`` carries the same
-    fields as the reference's.
+    * ``tile_moves`` / ``bytes_moved`` — cross-device tile transfers with a
+      known destination (a consuming device or the tile's home).
+    * ``bytes_staged`` — bytes harmonized onto a device *nobody declared*:
+      mixed-device assembly that routes data through an intermediate hop.
+      The device-resident executors keep this at zero; a nonzero value
+      means some path still stages.
+    * ``bytes_local`` — reads served in place on the requesting device.
     """
     tile_moves: int = 0
     bytes_moved: int = 0
@@ -99,11 +159,65 @@ class TileTraffic:
         self.bytes_staged = self.bytes_local = 0
 
 
+def _majority_device(tiles: list):
+    """The committed device holding the most of ``tiles`` (deterministic
+    tie-break on device id), or None if nothing is committed."""
+    counts: dict = {}
+    for t in tiles:
+        d = device_of(t)
+        if d is not None:
+            counts[d] = counts.get(d, 0) + 1
+    if not counts:
+        return None
+    return max(sorted(counts, key=lambda d: d.id),
+               key=lambda d: counts[d])
+
+
+def _pull_tiles(tiles: list, device, traffic: TileTraffic | None,
+                tile_nbytes: int, staged: bool = False) -> list:
+    """Bring every tile to logical ``device`` (None = the majority device,
+    chosen only when tiles are committed to *different* devices),
+    charging the attached traffic recorder.  One hop per off-destination
+    tile — assembly happens ON the destination, never via an
+    intermediate device."""
+    if device is None:
+        devs = {device_of(t) for t in tiles} - {None}
+        if len(devs) <= 1:
+            # nothing to harmonize; uncommitted tiles join the one
+            # committed device's torch device, free of charge
+            for d in devs:
+                tiles = [t if t.device == d.torch_device
+                         else t.to(d.torch_device) for t in tiles]
+            return tiles
+        device = _majority_device(tiles)
+    else:
+        staged = False                    # a declared destination is final
+    out = []
+    for t in tiles:
+        src = device_of(t)
+        if src == device:
+            if traffic is not None:
+                traffic.bytes_local += tile_nbytes
+            out.append(t)
+            continue
+        if src is not None and traffic is not None:
+            traffic.tile_moves += 1
+            traffic.bytes_moved += tile_nbytes
+            if staged:
+                traffic.bytes_staged += tile_nbytes
+        out.append(_place(t, device))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # tile storage backends
 class TileStore:
-    """Where a :class:`BlockArray`'s tiles physically live: a dict of
-    tensors on the array's device, no traffic accounting."""
+    """Where a :class:`BlockArray`'s tiles physically live.
+
+    The base class is the host backend: a dict of uncommitted tensors on
+    the array's device, no residency obligations, no traffic accounting —
+    exactly the single-device behavior every non-mesh executor wants.
+    """
 
     traffic: TileTraffic | None = None
 
@@ -116,12 +230,52 @@ class TileStore:
     def set(self, idx: tuple[int, ...], value) -> None:
         self._tiles[idx] = value
 
+    def device_for(self, idx: tuple[int, ...]):
+        """The residency target of tile ``idx`` (None = uncommitted)."""
+        return None
+
     def indices(self):
         return self._tiles.keys()
 
 
 class HostTileStore(TileStore):
-    """Alias backend for readability: tiles on the array's device."""
+    """Alias backend for readability: uncommitted tiles on the array's
+    device."""
+
+
+class DeviceTileStore(TileStore):
+    """Device-resident tiles: every tile is committed to the logical
+    device serving its home (``devmap[home % ndev]``, from
+    ``placement.device_assignment``).
+
+    Writes re-commit to the home device — a value produced elsewhere is
+    one direct copy home (counted in ``traffic``); a value produced on
+    the home (owner-computes) commits in place.  This is what makes block
+    homes *real*: a multi-device wave reads each tile where it lives
+    instead of shipping everything through a staging device.
+    """
+
+    def __init__(self, array: "BlockArray", devmap: Sequence,
+                 traffic: TileTraffic | None = None):
+        super().__init__()
+        self.array = array
+        self.devmap = list(devmap)
+        self.traffic = traffic
+
+    def device_for(self, idx: tuple[int, ...]):
+        home = self.array.home.get(idx, 0)
+        return self.devmap[home % len(self.devmap)]
+
+    def set(self, idx: tuple[int, ...], value) -> None:
+        dest = self.device_for(idx)
+        src = device_of(value)
+        if src == dest:
+            self._tiles[idx] = value
+            return
+        if src is not None and self.traffic is not None:
+            self.traffic.tile_moves += 1
+            self.traffic.bytes_moved += self.array.tile_nbytes
+        self._tiles[idx] = _place(value, dest)
 
 
 def _assemble(nested: np.ndarray) -> torch.Tensor:
@@ -144,7 +298,9 @@ class BlockArray:
     Tiles are held behind a :class:`TileStore` so that tasks touch only the
     blocks in their declared footprint — the software analogue of the SCC's
     block allocator, where a task's footprint names exactly the DRAM blocks
-    it may access.
+    it may access.  Swapping the store (``use_store``) changes *where* the
+    tiles live without changing any program; ``device`` is where the
+    array is built and where a host store keeps its tiles.
     """
 
     _next_id = itertools.count()
@@ -181,6 +337,23 @@ class BlockArray:
     @property
     def store(self) -> TileStore:
         return self._store
+
+    def use_store(self, store: TileStore) -> None:
+        """Swap the storage backend, migrating existing tiles.  Initial
+        placement is *not* charged as traffic — tiles are being homed, not
+        moved between consumers."""
+        old, self._store = self._store, store
+        saved, store.traffic = store.traffic, None
+        try:
+            for idx in list(old.indices()):
+                store.set(idx, old.get(idx))
+        finally:
+            store.traffic = saved
+
+    def tile_device(self, idx: tuple[int, ...]):
+        """The logical device the stored tile is committed to (None for
+        uncommitted host-store tiles)."""
+        return device_of(self._store.get(idx))
 
     # -- construction -----------------------------------------------------
     @classmethod
@@ -265,14 +438,25 @@ class BlockArray:
             raise ValueError(
                 f"{self.name}{list(idx)}: tile shape {tuple(value.shape)} != "
                 f"block shape {self.block_shape}")
-        self._store.set(idx, value.contiguous())
+        tile = value.contiguous()
+        if tile is not value:
+            _locate(tile, device_of(value))
+        self._store.set(idx, tile)
 
-    def gather(self) -> torch.Tensor:
+    def gather(self, device=None) -> torch.Tensor:
         """Assemble the full array from tiles (the read-back at a barrier)
-        with ``torch.cat``; the result is a new tensor."""
+        with ``torch.cat``; the result is a new tensor.
+
+        Mixed-device tiles are assembled *on the destination* — logical
+        ``device`` if given, else the device already holding the most
+        tiles — so each off-destination tile moves exactly once (no
+        staging hop through an intermediate device)."""
+        idxs = list(self.block_indices())
+        tiles = _pull_tiles([self._store.get(idx) for idx in idxs], device,
+                            self.traffic, self.tile_nbytes)
         nested = np.empty(self.grid, dtype=object)
-        for idx in self.block_indices():
-            nested[idx] = self._store.get(idx)
+        for idx, tile in zip(idxs, tiles):
+            nested[idx] = tile
         out = _assemble(nested)
         return out.clone() if nested.size == 1 else out
 
@@ -343,25 +527,39 @@ class Region:
         return FootprintSpec(self.shape, dtype_name(self.array.dtype),
                              tuple(len(r) for r in self.ranges))
 
-    def materialize(self) -> torch.Tensor:
+    def materialize(self, device=None) -> torch.Tensor:
         """Assemble this region's tiles into one tensor (task input value).
-        A one-tile region returns the stored tile itself: callers never
-        write into it."""
+        A one-tile region returns the tile itself (the stored one when it
+        is already on the destination): callers never write into it.
+
+        ``device`` names the consuming logical device: tiles homed there
+        are read in place, every other committed tile is copied directly
+        onto it (one hop, counted as a measured transfer).  Without a
+        destination, mixed-device tiles harmonize onto the majority
+        device and the moved bytes are charged as *staged* — the double
+        hop the device-resident executors avoid by always naming the
+        consumer."""
         idxs = self.tile_indices
+        traffic = self.array.traffic
+        nbytes = self.array.tile_nbytes
+        tiles = _pull_tiles([self.array.get_tile(i) for i in idxs], device,
+                            traffic, nbytes, staged=True)
         if len(idxs) == 1:
-            return self.array.get_tile(idxs[0])
+            return tiles[0]
         grid = tuple(len(r) for r in self.ranges)
         nested = np.empty(grid, dtype=object)
         # tile_indices and the position product enumerate in the same
         # (row-major) order, so the flat tile list zips positionally
-        for pos, idx in zip(itertools.product(*[range(g) for g in grid]),
-                            idxs):
-            nested[pos] = self.array.get_tile(idx)
+        for pos, tile in zip(itertools.product(*[range(g) for g in grid]),
+                             tiles):
+            nested[pos] = tile
         return _assemble(nested)
 
     def store(self, value) -> None:
         """Split a produced value back into this region's tiles (task
-        output); each tile becomes a contiguous tensor of its own."""
+        output); each tile becomes a contiguous tensor of its own and
+        commits wherever the array's store homes it — for a
+        device-resident store, tile-by-tile to the home device."""
         idxs = self.tile_indices
         if len(idxs) == 1:
             self.array.set_tile(idxs[0], value)
@@ -373,7 +571,7 @@ class Region:
         for pos in itertools.product(*[range(len(r)) for r in self.ranges]):
             src = tuple(r[p] for r, p in zip(self.ranges, pos))
             sl = tuple(slice(p * b, (p + 1) * b) for p, b in zip(pos, bs))
-            self.array.set_tile(src, value[sl])
+            self.array.set_tile(src, _locate(value[sl], device_of(value)))
 
     def __repr__(self):
         rs = ",".join(f"{r.start}:{r.stop}" if len(r) > 1 else str(r.start)

@@ -11,9 +11,14 @@
   one launch of the hand-written wave kernel registered for the body
   (``core/wavekernel.py``).  The dependence analysis is unchanged, only
   the dispatch is batched.
+* :class:`repro_torch.core.sharded.ShardedExecutor` — the staged
+  wavefronts placed home-aware on a device mesh (owner-computes over
+  ``BlockArray.home``); lives in its own module to keep mesh plumbing out
+  of the single-device path.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from collections import OrderedDict, defaultdict
@@ -25,6 +30,7 @@ from ..obs.profiler import trace_span
 from ..obs.tracker import NULL_TRACKER
 from . import wavekernel
 from .api import suspend_runtime_scope
+from .blocks import _locate
 from .graph import TaskDescriptor, TaskGraph, TaskState, normalize_outputs
 from .mpb import MPBQueue
 from .scheduler import MasterScheduler
@@ -372,22 +378,38 @@ class StagedExecutor(ExecutorBase):
         batched dispatch."""
         return wavekernel.group_signature(td)
 
-    def _stack_group(self, group: list[TaskDescriptor]) -> list:
-        """Stack each READS arg across the group, then the firstprivate
-        values as ``(n,)`` operands — the canonical stacking order the
-        vmap path and the wave kernels share.  ``torch.stack`` copies, so
-        the stacked operands never alias a stored tile."""
-        ins = []
+    def _pulls(self, group: list[TaskDescriptor]) -> list[Callable]:
+        """One ``pull(i, device)`` per stacked operand — READS args then
+        firstprivate values, the canonical stacking order shared by the
+        staged, sharded and wave-kernel paths.  ``pull(i, device)``
+        produces task ``i``'s operand assembled on logical ``device``
+        (left in place when None, the plain staged path); firstprivate
+        values are staged as ``wavekernel.stage_dtype`` on the
+        destination's torch device."""
+        pulls = []
         for pos in range(len(group[0].args)):
             if group[0].args[pos].READS:
-                ins.append(torch.stack(
-                    [td.args[pos].region.materialize() for td in group]))
+                pulls.append(lambda i, dev, p=pos:
+                             group[i].args[p].region.materialize(device=dev))
         for pos in range(len(group[0].values)):
             dtype = wavekernel.stage_dtype(group[0].values[pos])
-            ins.append(torch.stack(
-                [torch.as_tensor(td.values[pos], dtype=dtype,
-                                 device=self.device) for td in group]))
-        return ins
+            pulls.append(lambda i, dev, p=pos, dt=dtype: torch.as_tensor(
+                group[i].values[p], dtype=dt,
+                device=self.device if dev is None else dev.torch_device))
+        return pulls
+
+    def _stack_group(self, group: list[TaskDescriptor],
+                     device=None) -> list:
+        """Stack each READS arg across the group, then the firstprivate
+        values as ``(n,)`` operands.  ``device`` (if given) is the
+        dispatch destination: each operand is assembled *directly on it*
+        (``Region.materialize(device=...)``), so tiles resident on other
+        devices move exactly once and nothing routes through a staging
+        device; the plain staged path leaves operands where they are.
+        ``torch.stack`` copies, so the stacked operands never alias a
+        stored tile."""
+        return [torch.stack([pull(i, device) for i in range(len(group))])
+                for pull in self._pulls(group)]
 
     @staticmethod
     def _assign_outputs(td: TaskDescriptor, vals: tuple) -> None:
@@ -398,15 +420,17 @@ class StagedExecutor(ExecutorBase):
             mode.region.store(value)
         td.output_values = vals
 
-    def _store_group(self, group: list[TaskDescriptor], result) -> None:
+    def _store_group(self, group: list[TaskDescriptor], result,
+                     device=None) -> None:
         """Unstack one batched result back into the group's regions and
-        captured outputs (one slice per task, in group order)."""
+        captured outputs (one slice per task, in group order); ``device``
+        is the logical device that computed it (None: uncommitted)."""
         result = normalize_outputs(result, len(group[0].outputs),
                                    group[0].name or group[0].tid)
         self.grouped_dispatches += 1
         for i, td in enumerate(group):
             self._assign_outputs(
-                td, tuple(stacked[i] for stacked in result))
+                td, tuple(_locate(stacked[i], device) for stacked in result))
 
     def _run_group(self, group: list[TaskDescriptor]) -> None:
         if self.kernel_backend == "pallas":
@@ -422,13 +446,17 @@ class StagedExecutor(ExecutorBase):
         for td in group:
             td.state = TaskState.RUNNING
         ins = self._stack_group(group)
-        vfn = self._vmapped.get(fn)
-        if vfn is None:
-            vfn = self._vmapped[fn] = torch.func.vmap(fn)
+        vfn = self._vmapped_fn(fn)
         self._last_mode = "vmap"
         with suspend_runtime_scope():    # vmap runs fn on this thread
             result = vfn(*ins)
         self._store_group(group, result)
+
+    def _vmapped_fn(self, fn: Callable) -> Callable:
+        vfn = self._vmapped.get(fn)
+        if vfn is None:
+            vfn = self._vmapped[fn] = torch.func.vmap(fn)
+        return vfn
 
     # -- the wave-kernel backend (kernel_backend="pallas") --------------------
     def _try_wave_kernel(self, group: list[TaskDescriptor]) -> str | None:
@@ -487,13 +515,22 @@ class StagedExecutor(ExecutorBase):
             return (0, 0, 0)
         return (t.tile_moves, t.bytes_moved, t.bytes_staged)
 
+    def _enqueue_wave(self, wave: list[TaskDescriptor]) -> None:
+        """Account a staged wave as queued work; the staged path has one
+        logical dispatch channel (0).  Sharded overrides per owner home."""
+        self.obs.queue(0, len(wave))
+
+    def _dequeue_group(self, group: list[TaskDescriptor]) -> None:
+        self.obs.queue(0, -len(group))
+
     def _run_wave_group(self, group: list[TaskDescriptor]) -> None:
         if not self.obs.enabled:
             self._run_group(group)
             return
         # dequeue before dispatch so live depth means "queued, not yet
-        # dispatched"
-        self.obs.queue(0, -len(group))
+        # dispatched" — the sharded rebalance reads it as background load
+        # and must not count the group it is placing
+        self._dequeue_group(group)
         self._last_mode = "jit"
         t0 = time.perf_counter()
         self._run_group(group)
@@ -515,8 +552,7 @@ class StagedExecutor(ExecutorBase):
                 wid = self._wave_id
                 self.obs.emit("wave_open", wave=wid, executor=self.kind,
                               tasks=len(wave), groups=len(groups))
-                # the staged path has one logical dispatch channel (0)
-                self.obs.queue(0, len(wave))
+                self._enqueue_wave(wave)
                 moves0, moved0, staged0 = self._traffic_snapshot()
                 disp0 = self._dispatches
                 t0 = time.perf_counter()
@@ -555,7 +591,41 @@ class StagedExecutor(ExecutorBase):
         self.barrier()
 
 
-def _run_one(td: TaskDescriptor) -> None:
-    """Run one task eagerly on the master thread."""
+def _run_one(td: TaskDescriptor, fn: Callable | None = None,
+             device=None) -> None:
+    """Run one task eagerly on the master thread, through ``fn`` (the
+    task's own body by default).  ``device`` (if given) is the logical
+    execution destination: operands assemble directly on it, firstprivate
+    values are staged there (``wavekernel.stage_dtype``), the body runs
+    with its torch device current, and the outputs are recorded as
+    produced there — resident tiles are read in place."""
     td.state = TaskState.RUNNING
-    td.run()
+    if device is None:
+        if fn is None:
+            td.run()
+            return
+        in_vals = [a.region.materialize() for a in td.args if a.READS]
+        values = td.values
+    else:
+        in_vals = [a.region.materialize(device=device)
+                   for a in td.args if a.READS]
+        values = tuple(torch.as_tensor(v, dtype=wavekernel.stage_dtype(v),
+                                       device=device.torch_device)
+                       for v in td.values)
+    with suspend_runtime_scope(), on_device(device):
+        result = (fn or td.fn)(*in_vals, *values)
+    outs = td.outputs
+    result = normalize_outputs(result, len(outs), td.name or td.tid)
+    result = tuple(_locate(v, device) for v in result)
+    for mode, value in zip(outs, result):
+        mode.region.store(value)
+    td.output_values = result
+
+
+def on_device(device):
+    """A context that makes logical ``device``'s card the current CUDA
+    device (so a body's ``device="cuda"`` allocations land there); a
+    no-op for None and for the CPU."""
+    if device is None or device.torch_device.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.device(device.torch_device)

@@ -44,8 +44,8 @@ from typing import Callable, Sequence
 
 import torch
 
-from .api import (UNPORTED, ExecutorKind, RuntimeConfig, RuntimeStats,
-                  TaskFuture, _pop_runtime, _push_runtime)
+from .api import (ExecutorKind, RuntimeConfig, RuntimeStats, TaskFuture,
+                  _pop_runtime, _push_runtime)
 from .blocks import (AccessMode, BlockArray, Region, TileTraffic,
                      coerce_mode, resolve_device)
 from .deps import DependenceAnalyzer
@@ -60,8 +60,7 @@ __all__ = ["TaskRuntime"]
 
 
 class TaskRuntime:
-    """One master + N workers + the block store on one device, wired per
-    the paper."""
+    """One master + N workers + the block store, wired per the paper."""
 
     def __init__(self, config: RuntimeConfig | None = None, **overrides):
         if config is None:
@@ -71,11 +70,6 @@ class TaskRuntime:
         # validate() also normalizes typed choice members (ExecutorKind
         # etc.) to canonical strings — internals only see those
         self.config = config = config.validate()
-        for (fld, value), item in UNPORTED.items():
-            if getattr(config, fld) == value:
-                raise NotImplementedError(
-                    f"{fld}={value!r} is not ported to repro_torch yet: "
-                    f"{item}")
         if torch.device(config.device).type == "cuda" and \
                 not torch.cuda.is_available():
             raise RuntimeError(
@@ -116,7 +110,7 @@ class TaskRuntime:
                                          self.analyzer, policy=config.policy,
                                          seed=config.seed)
         # measured tile movement (shared by every array this runtime
-        # registers; zero on one device, kept for the stats schema)
+        # registers; the memory layer charges it, stats() reports it)
         self.traffic = TileTraffic()
         # observability: one tracker per runtime, handed to the scheduler
         # and the executor.  ``owned`` sinks (built from a spec string)
@@ -163,6 +157,13 @@ class TaskRuntime:
                                              "sharded" else None),
                                dep_batch_lines=config.dep_batch_lines,
                                kernel_backend=config.kernel_backend)
+        if config.executor == ExecutorKind.SHARDED:
+            from .sharded import ShardedExecutor
+            return ShardedExecutor(
+                self.graph, self.scheduler, self.device,
+                group=config.group_waves, n_homes=config.n_controllers,
+                owner_skew_threshold=config.owner_skew_threshold,
+                kernel_backend=config.kernel_backend)
         return StagedExecutor(self.graph, self.scheduler, self.device,
                               group=config.group_waves,
                               kernel_backend=config.kernel_backend)
@@ -170,8 +171,12 @@ class TaskRuntime:
     # -- memory management (§3.2): the custom allocator --------------------------
     def register(self, ba: BlockArray) -> BlockArray:
         """Adopt ``ba`` (built here or by ``repro_torch.interop``): assign
-        block homes and attach the runtime's traffic recorder.  Its tiles
-        must already live on this runtime's device."""
+        block homes, attach the runtime's traffic recorder, and — if the
+        executor wants residency (sharded under a mesh) — swap in the
+        store that places each tile on its home device.  Its tiles must
+        already live on this runtime's device; after this, ``from_array``/
+        ``zeros``/``full`` results live where
+        ``placement.device_assignment`` says they do."""
         if ba.device != self.device:
             raise ValueError(f"{ba.name} lives on {ba.device}, the runtime "
                              f"on {self.device}")
@@ -182,6 +187,11 @@ class TaskRuntime:
             # sharded dependence manager learns the block -> home map so
             # footprints route to the owning per-home manager
             register(ba)
+        make_store = getattr(self._exec, "make_store", None)
+        if make_store is not None:
+            store = make_store(ba)
+            if store is not None:
+                ba.use_store(store)
         self._arrays.append(ba)
         return ba
 
@@ -344,9 +354,19 @@ class TaskRuntime:
         if getattr(self._exec, "kernel_backend", "xla") == "pallas":
             s.kernel_dispatches = self._exec.kernel_dispatches
             s.kernel_fallbacks = self._exec.kernel_fallbacks
+        # residency semantics are shared by every executor: the measured
+        # movement comes from the memory layer's recorder (zero under
+        # executors that never place tiles on devices)
         s.tile_moves = self.traffic.tile_moves
         s.bytes_moved = self.traffic.bytes_moved
         s.bytes_staged = self.traffic.bytes_staged
+        # duck-typed so the single-device path never imports the sharded
+        # module just to fill in stats
+        if getattr(self._exec, "cross_home_bytes", None) is not None:
+            s.sharded_dispatches = self._exec.sharded_dispatches
+            s.cross_home_bytes = self._exec.cross_home_bytes
+            s.local_home_bytes = self._exec.local_home_bytes
+            s.owner_overrides = self._exec.owner_overrides
         # sharded dependence manager: message traffic + per-manager
         # admissions (None under the central analyzer)
         if getattr(self.analyzer, "dep_messages", None) is not None:

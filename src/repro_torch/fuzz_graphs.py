@@ -182,10 +182,13 @@ def run_case(seed: int, device: str = "cuda", **config_overrides):
         rt.shutdown()
 
 
-#: the paths :func:`compare_paths` replays; the sequential oracle first
+#: the paths :func:`compare_paths` replays; the sequential oracle first.
+#: ``sharded`` runs with no mesh installed, the reference's fuzz path:
+#: the staged dispatch plus the owner-computes accounting
 PATHS = {
     "sequential": {"executor": "sequential"},
     "staged": {"executor": "staged"},
+    "sharded": {"executor": "sharded"},
     "host": {"executor": "host"},
     "staged+pallas": {"executor": "staged", "kernel_backend": "pallas"},
     "staged+sharded-sync": {"executor": "staged", "dep_manager": "sharded",
@@ -200,7 +203,7 @@ PATHS = {
 #: executor's workers may finish a task before a later spawn is
 #: analyzed, so both see fewer live predecessors (their
 #: ``tasks_spawned``/``blocks_walked`` still match).
-DEFERRED = ("staged", "staged+pallas", "staged+sharded-sync",
+DEFERRED = ("staged", "sharded", "staged+pallas", "staged+sharded-sync",
             "staged+sharded-threaded")
 
 

@@ -1,9 +1,11 @@
 """Where the paper apps' wall time goes on the card.
 
 Runs each app at the §4.2 sizes (``apps.PAPER_SIZES``) on the staged
-executor with the wave kernels — a warm-up run, a timed run, and a run
-under ``torch.profiler`` with CPU and CUDA activities — and prints one
-JSON line per app:
+executor with the wave kernels (or, with ``--executor sharded``, on the
+sharded executor, under ``--mesh N``: no mesh for 0, a one-device mesh
+for 1, N logical devices on the card above) — a warm-up run, a timed
+run, and a run under ``torch.profiler`` with CPU and CUDA activities —
+and prints one JSON line per app:
 
 * ``wall_s`` — spawn to verified result on the host clock, ending in a
   synchronize; ``spawn_s``/``barrier_s``/``wait_s`` from ``RuntimeStats``
@@ -23,11 +25,12 @@ JSON line per app:
 Usage, on a machine with a CUDA device::
 
     PYTHONPATH=src python -m repro_torch.profile_apps [--app NAME ...] \
-        [--cprofile]
+        [--cprofile] [--executor staged|sharded] [--mesh N]
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import time
@@ -35,7 +38,7 @@ import time
 import torch
 from torch.autograd import DeviceType
 
-from . import apps
+from . import apps, dist
 from .core import RuntimeConfig, TaskRuntime
 
 
@@ -72,15 +75,29 @@ def _device_ms(evt) -> float:
     return 0.0
 
 
-def _run(name: str, device: str, **config) -> tuple[float, object]:
-    rt = TaskRuntime(RuntimeConfig(executor="staged", kernel_backend="pallas",
-                                   device=device, **config))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    apps.APPS[name](rt, **apps.PAPER_SIZES[name])     # self-verifies
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    rt.shutdown()
+def mesh_of(n: int, device: str = "cuda"):
+    """The mesh ``--mesh n`` names: None for 0, the one-device mesh for
+    1, ``n`` logical devices on ``device`` above."""
+    if n <= 0:
+        return None
+    if n == 1:
+        return dist.single_device_mesh(device=device)
+    return dist.Mesh(dist.logical_devices(n, device), ("data",))
+
+
+def _run(name: str, device: str, executor: str = "staged", mesh: int = 0,
+         **config) -> tuple[float, object]:
+    m = mesh_of(mesh, device)
+    with dist.use_mesh(m) if m is not None else contextlib.nullcontext():
+        rt = TaskRuntime(RuntimeConfig(executor=executor,
+                                       kernel_backend="pallas",
+                                       device=device, **config))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        apps.APPS[name](rt, **apps.PAPER_SIZES[name])     # self-verifies
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rt.shutdown()
     return wall, rt.stats()
 
 
@@ -89,7 +106,8 @@ def profile_app(name: str, device: str = "cuda", top: int = 8,
     """One warm-up run, one timed run, one run under the profiler (whose
     host overhead would distort the timed run's wall), and with
     ``cprofile`` one under ``cProfile``.  ``config`` goes to
-    :class:`RuntimeConfig`."""
+    :class:`RuntimeConfig`, apart from ``executor`` (``"staged"`` by
+    default) and ``mesh`` (see :func:`mesh_of`)."""
     _run(name, device, **config)
     with GCTimer() as gct:
         wall, stats = _run(name, device, **config)
@@ -126,7 +144,10 @@ def profile_app(name: str, device: str = "cuda", top: int = 8,
     return dict(app=name, size=apps.PAPER_SIZES[name], config=config,
                 wall_s=wall, spawn_s=stats.spawn_time_s,
                 barrier_s=stats.barrier_time_s, wait_s=stats.wait_time_s,
-                pump_wall_s=stats.pump_wall_s, gc_s=gct.seconds,
+                pump_wall_s=stats.pump_wall_s,
+                sharded_dispatches=stats.sharded_dispatches,
+                tile_moves=stats.tile_moves, bytes_moved=stats.bytes_moved,
+                gc_s=gct.seconds,
                 gc_collections=gct.collections, device_trace=bool(by_name),
                 device_busy_ms=busy,
                 idle_share=1.0 - busy / (wall * 1e3) if by_name else None,
@@ -139,13 +160,21 @@ def main(argv=None) -> int:
                         help="app to profile (repeatable; default: all)")
     parser.add_argument("--cprofile", action="store_true",
                         help="add a run under cProfile (host functions)")
+    parser.add_argument("--executor", choices=("staged", "sharded"),
+                        default="staged")
+    parser.add_argument("--mesh", type=int, default=0, metavar="N",
+                        help="sharded only: 0 = no mesh, 1 = one-device "
+                        "mesh, N > 1 = N logical devices on the card")
     args = parser.parse_args(argv)
+    if args.mesh and args.executor != "sharded":
+        parser.error("--mesh needs --executor sharded")
     if not torch.cuda.is_available():
         parser.error("needs a CUDA device")
     print(torch.cuda.get_device_name(0), flush=True)
     for name in args.app or list(apps.APPS):
-        print(json.dumps(profile_app(name, cprofile=args.cprofile)),
-              flush=True)
+        print(json.dumps(profile_app(name, cprofile=args.cprofile,
+                                     executor=args.executor,
+                                     mesh=args.mesh)), flush=True)
     return 0
 
 

@@ -15,11 +15,16 @@ for flash attention), and the machine code of the tensor-core kernels
 is read for their ``HGMMA``, ``UTMALDG`` and tf32 ``HMMA`` instructions
 (the GEMM and the tile update both);
 the app tests drive the wave backend end to end and check that the
-registered kernels launched, the serving tests drive the host executor
+registered kernels launched (and, on the sharded executor, that they do
+not under a mesh, where every group falls back as ``sharded_mesh``), the serving tests drive the host executor
 on the card, and the LLM test counts one flash-attention launch per layer
 in one ``generate``.  The fuzz tests replay a few seeds of the
 differential corpus on the card under the sharded dependence managers
 (both pumps), with ``_gemm``'s groups on the GEMM kernel at 8x8x8.
+The sharded-executor tests run the apps with no mesh, on
+``single_device_mesh`` and on 4 logical devices of the card, the
+reference's 2-device gemm program on logical devices, and the same
+program across two cards (skipped below two CUDA devices).
 """
 import pytest
 import torch
@@ -518,3 +523,147 @@ def test_cuda_apps_run_under_sharded_managers(cuda_device, executor, pump):
                              dep_pump=pump, app_kwargs=kwargs)
         assert stats.dep_messages > 0
         assert sum(stats.manager_admissions) >= stats.tasks_spawned
+
+
+# ---------------------------------------------------------------------------
+# the sharded executor: no mesh, one-device mesh, logical devices, cards
+SHARDED_SIZES = {
+    "black_scholes": dict(n_options=8192, task_options=512),
+    "matmul": dict(n=256, tile=64),
+    "fft": dict(n=128, row_block=32, tile=32),
+    "jacobi": dict(n=512, tile=128, iters=2),
+    "cholesky": dict(n=512, tile=128),
+}
+
+
+def _sharded_mesh(mode, device):
+    from repro_torch import dist
+    if mode == "mesh1":
+        return dist.single_device_mesh(device=device)
+    return dist.Mesh(dist.logical_devices(4, device), ("data",))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["none", "mesh1", "mesh4"])
+@pytest.mark.parametrize("name", sorted(SHARDED_SIZES))
+def test_cuda_sharded_apps_in_three_modes(cuda_device, name, mode):
+    """The apps on the sharded executor with the wave backend: with no
+    mesh the staged path (wave kernels launched), under a mesh every
+    group a ``sharded_mesh`` fallback, no wave kernel, nothing staged,
+    each tile on its home device, Black-Scholes once per device."""
+    import contextlib
+    from repro_torch import dist
+    from repro_torch.core.placement import device_assignment
+    from repro_torch.obs import InMemoryTracker
+    wrappers = {"matmul": mm_kernel.matmul_batched,
+                "cholesky": mm_kernel.tile_update_batched,
+                "jacobi": jac_kernel.jacobi_halo_batched}
+    mesh = None if mode == "none" else _sharded_mesh(mode, cuda_device)
+    trk = InMemoryTracker()
+    before = {k: w.launches for k, w in wrappers.items()}
+    bs_before = bs_kernel.black_scholes.launches
+    with dist.use_mesh(mesh) if mesh is not None \
+            else contextlib.nullcontext() as ctx:
+        rt = TaskRuntime(RuntimeConfig(
+            executor="sharded", kernel_backend="pallas",
+            device=str(cuda_device), placement="striped", n_controllers=4,
+            tracker=trk))
+        try:
+            apps.APPS[name](rt, **SHARDED_SIZES[name])    # self-verifies
+            torch.cuda.synchronize()
+            if mesh is not None:
+                devmap = device_assignment(4, ctx)
+                for ba in rt._arrays:
+                    for idx, h in ba.home.items():
+                        assert ba.tile_device(idx) == devmap[h % 4]
+        finally:
+            rt.shutdown()
+    st = rt.stats()
+    launched = {k: w.launches - before[k] for k, w in wrappers.items()}
+    bs = bs_kernel.black_scholes.launches - bs_before
+    reasons = {e.data["reason"] for e in trk.events_of("kernel_dispatch")
+               if e.data["backend"] != "pallas"}
+    assert st.cross_home_bytes + st.local_home_bytes > 0
+    if mode == "none":
+        assert st.sharded_dispatches == 0
+        assert "sharded_mesh" not in reasons
+        if name in wrappers:
+            assert launched[name] == st.kernel_dispatches > 0
+    else:
+        assert st.kernel_dispatches == 0 and reasons == {"sharded_mesh"}
+        assert not any(launched.values())
+        assert st.bytes_staged == 0
+        if mode == "mesh1":
+            assert st.tile_moves == 0
+            assert st.sharded_dispatches == st.grouped_dispatches > 0
+    assert bs == ({"none": 1, "mesh1": 1, "mesh4": 4}[mode]
+                  if name == "black_scholes" else 0)
+
+
+def _sharded_gemm(mesh, device, homes):
+    from repro_torch import dist
+    gen = torch.Generator().manual_seed(0)
+    a, b = torch.randn(128, 128, generator=gen), \
+        torch.randn(128, 128, generator=gen)
+
+    @task(inout="c", in_=("x", "y"))
+    def gemm(c, x, y):
+        return c + x @ y
+
+    def prog(rt):
+        with rt.scope():
+            A = rt.from_array(a, (32, 32))
+            B = rt.from_array(b, (32, 32))
+            C = rt.zeros((128, 128), (32, 32))
+            for i in range(4):
+                for j in range(4):
+                    for k in range(4):
+                        gemm(C[i, j], A[i, k], B[k, j])
+            rt.barrier()
+            st = rt.stats()              # before the read-back's moves
+            return C.gather().cpu(), st, (A, B, C)
+
+    seq, _, _ = prog(TaskRuntime(RuntimeConfig(executor="sequential",
+                                               device=device)))
+    with dist.use_mesh(mesh):
+        got, st, arrays = prog(TaskRuntime(RuntimeConfig(
+            executor="sharded", placement="striped", n_controllers=homes,
+            device=device)))
+    return seq, got, st, arrays
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_gemm_on_logical_devices(cuda_device):
+    """The reference's 2-device residency program on two logical devices
+    of the card: moves measured equal to the footprint prediction."""
+    from repro_torch import dist
+    mesh = dist.Mesh(dist.logical_devices(2, cuda_device), ("data",))
+    seq, got, st, _ = _sharded_gemm(mesh, str(cuda_device), 2)
+    assert torch.equal(got, seq)
+    g, block_bytes = 4, 32 * 32 * 4
+    assert st.sharded_dispatches == 4 and st.bytes_staged == 0
+    assert st.bytes_moved == st.cross_home_bytes == \
+        g ** 3 // 2 * block_bytes
+    assert st.tile_moves == g ** 3 // 2
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_gemm_across_cards(cuda_device):
+    """A real multi-GPU mesh: tiles live on the card serving their home,
+    each device chunk runs on its own card, and the result and counts
+    are the logical-device run's."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((2,), ("data",))
+    seq, got, st, arrays = _sharded_gemm(mesh, "cuda:0", 2)
+    torch.testing.assert_close(got, seq, rtol=1e-4, atol=1e-4)
+    for ba in arrays:
+        for idx, h in ba.home.items():
+            tile = ba.get_tile(idx)
+            assert ba.tile_device(idx).id == h % 2
+            assert tile.device == torch.device("cuda", h % 2)
+    g, block_bytes = 4, 32 * 32 * 4
+    assert st.bytes_moved == st.cross_home_bytes == \
+        g ** 3 // 2 * block_bytes
+    assert st.bytes_staged == 0

@@ -651,7 +651,8 @@ class TestRuntimeIntegration:
             assert rt.analyzer.live_blocks == 0
 
 
-@pytest.mark.parametrize("execu", ["sequential", "host", "staged"])
+@pytest.mark.parametrize("execu", ["sequential", "host", "staged",
+                                   "sharded"])
 @pytest.mark.parametrize("pump", ["sync", "threaded"])
 def test_gather_matches_central(execu, pump):
     @task(inout="c", in_=("a", "b"))

@@ -1,4 +1,4 @@
-"""Differential task-graph fuzzing inside repro_torch: six paths, one answer.
+"""Differential task-graph fuzzing inside repro_torch: seven paths, one answer.
 
 The port of ``tests/test_differential.py``.  Every pinned seed of
 ``repro_torch.fuzz_graphs.SEEDS`` generates the reference's random task
@@ -7,6 +7,8 @@ mixed dtypes, uneven waves) and replays it on the CPU on
 
 * ``sequential``                — the eager oracle,
 * ``staged``                    — wavefront vmap batching,
+* ``sharded``                   — the sharded executor with no mesh (the
+  staged dispatch plus owner-computes accounting),
 * ``host``                      — master + four worker threads,
 * ``staged`` + ``kernel_backend="pallas"`` — ``_gemm`` groups through
   ``matmul_batched``'s plain version, every other body ``no_kernel``,
@@ -56,6 +58,9 @@ def test_all_paths_agree(seed):
     sync = runs["staged+sharded-sync"][1]
     assert sync.dep_messages > 0
     assert sum(sync.manager_admissions) >= sync.tasks_spawned
+    sharded = runs["sharded"][1]
+    assert sharded.cross_home_bytes + sharded.local_home_bytes > 0
+    assert sharded.sharded_dispatches == 0          # no mesh installed
 
 
 def test_gemm_kernel_path_fuses_somewhere_in_corpus():

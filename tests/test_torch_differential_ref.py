@@ -18,7 +18,10 @@ and the port's runs (on the CPU) must match the reference's:
   other eligible group falls back as ``no_kernel``.  So the fallbacks
   by reason other than ``no_kernel`` equal the reference's other than
   ``lowering_failed``, and ``port.kernel_dispatches + port.no_kernel ==
-  ref.kernel_dispatches + ref.lowering_failed``.
+  ref.kernel_dispatches + ref.lowering_failed``;
+* on the ``sharded`` path (no mesh), the owner-computes accounting
+  (``cross_home_bytes``, ``local_home_bytes``) and the dispatch and
+  residency counts equal ``repro``'s.
 """
 from __future__ import annotations
 
@@ -80,3 +83,19 @@ def test_seed_matches_reference(seed):
     assert others(port, "no_kernel") == others(ref, "lowering_failed")
     assert port["fused"] + port["no_kernel"] == \
         ref["fused"] + ref["lowering_failed"]
+
+
+@pytest.mark.parametrize("seed", fuzz_graphs.SEEDS)
+def test_sharded_path_matches_reference(seed):
+    """The reference's ``sharded`` fuzz path (no mesh): the port's
+    owner-computes accounting and dispatch counts equal ``repro``'s, and
+    its outputs are the port's sequential run's, bit for bit."""
+    _, ref_st = ref_fuzz.run_case(seed, executor="sharded")
+    seq_out, _ = fuzz_graphs.run_case(seed, "cpu", executor="sequential")
+    out, st = fuzz_graphs.run_case(seed, "cpu", executor="sharded")
+    for fld in ("cross_home_bytes", "local_home_bytes", "sharded_dispatches",
+                "owner_overrides", "tile_moves", "bytes_moved",
+                "bytes_staged", "grouped_dispatches", "waves", "deps_found"):
+        assert getattr(st, fld) == getattr(ref_st, fld), fld
+    for name, want in seq_out.items():
+        np.testing.assert_array_equal(out[name], want, err_msg=name)

@@ -299,14 +299,10 @@ def test_ported_executors_run(overrides):
     (dict(executor="staged", sim_cost_fn=lambda td: (0, 0)), "item 7"),
 ])
 def test_unported_executors_raise_not_implemented(overrides, item):
-    """Only item 9's sharded executor is still refused.  Item 7 is ported:
-    the sim executor runs (timing only), and ``sim_cost_fn`` is inert
-    under the staged executor, as in the reference."""
-    if item == "item 9":
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.md .*{item}"):
-            TaskRuntime(RuntimeConfig(device="cpu", **overrides))
-        return
+    """The name is historical: every executor is ported now.  Item 7's
+    sim executor runs (timing only), ``sim_cost_fn`` is inert under the
+    staged executor, and item 9's sharded executor runs (with no mesh, as
+    the staged one), each the reference's executor class."""
     ref = repro.TaskRuntime(repro.RuntimeConfig(**overrides))
     with TaskRuntime(RuntimeConfig(device="cpu", **overrides)) as rt:
         assert type(rt._exec).__name__ == type(ref._exec).__name__
