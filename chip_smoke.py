@@ -118,6 +118,34 @@ Phases, each of which must pass (any failure exits non-zero):
 12. Parity: at a small size, ``executor="sequential"`` against staged with
    the wave kernels and against host, all five apps, within each app's
    tolerance.
+13. Train (main path 4, run right after phase 6, whose memory it frees
+   first): ``repro_torch.launch.train.build_train_step`` with
+   Mistral-NeMo-12B at full width, cut to 4 of its 40 layers
+   (``TRAIN_REDUCED``, printed on the first ``[train]`` line), weights
+   from seed 0, bf16 compute over f32 masters, ``attn_impl="chunked"``
+   (the flash kernel has no backward, nor has the TPU kernel), remat
+   ``full``: B 2 x S 4,096 from ``SyntheticTokens``, one warm-up and 5
+   timed steps.  Checks: loss and gnorm finite, gnorm above 0, every
+   parameter leaf changed, the learning rate ``cosine_schedule``'s.
+   Prints the median step ms, tokens/s (B·S a step), peak device
+   memory, model TFLOP/s (6·N·T + 6·L·B·Hq·S²·Dh, N the parameters less
+   the embedding table, T = B·S) and its share of 989 TFLOP/s, and the
+   device's idle share over a profiled step.  Then at full width in f32
+   (2 layers, B 1 x S 1,024, TF32 off) the training path (chunked
+   attention, chunked CE, remat ``full`` and ``dots``) against the plain
+   one (``impl="naive"``, full-sequence logits, no remat): the loss
+   within 1e-5 and the global gradient norm within 1e-4 relative, every
+   gradient leaf within 1e-4 of its largest element (the same f32 sums
+   in other orders: online softmax over key chunks against one softmax,
+   chunked CE against one logsumexp; the CPU parity tests' rule), the
+   peak memory of each printed.  At small size: the loss falls by more
+   than 0.5 in 60 steps at ``examples/train_lm.py``'s settings (d 256,
+   4 layers, vocab 2,048, peak_lr 1e-3), and 6 steps, a checkpoint and
+   a resume to 12 equal 12 straight steps bit for bit under
+   ``torch.use_deterministic_algorithms(True)``, with
+   ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` set around that check only (set
+   before the first product it slowed the LLM phase's decode steps).
+   No kernel of ``csrc/`` runs here.
 
 Then one JSON line of kernel results (each row's ``launches`` from phase
 4, 5 or 6, and in ``launches_by_path`` those of phases 7, 8 and 9), the
@@ -127,6 +155,8 @@ line again, and last ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -192,17 +222,26 @@ def _as_tuple(x) -> tuple:
 
 def device_kernels(fn) -> list[str]:
     """The device kernels one call of ``fn`` launches, by name, from a
-    profiled call after a warm-up."""
+    profiled call after a warm-up.  A trace with no device event at all
+    is taken for a dropped trace (seen once in ~15 runs on the card, in
+    the second of two profiles of one process) and the call is profiled
+    again, three times at most; a call that launches nothing gives an
+    empty list all three times."""
     import torch
     from torch.autograd import DeviceType
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    return names
 
 
 def kernel_phase(dev) -> list[dict]:
@@ -1223,6 +1262,20 @@ def _idle_share(prof, span: str):
     return 1.0 - busy_us / (t1 - t0), busy_us / 1e3, (t1 - t0) / 1e6
 
 
+def _device_ms_by_kernel(prof) -> list[tuple[str, float, int]]:
+    """(kernel name, device ms, launches) of a profile's device events,
+    the most time first."""
+    from torch.autograd import DeviceType
+    by: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            row = by.setdefault(e.name, [0.0, 0])
+            row[0] += (e.time_range.end - e.time_range.start) / 1e3
+            row[1] += 1
+    return sorted(((k, ms, n) for k, (ms, n) in by.items()),
+                  key=lambda t: -t[1])
+
+
 def serve_phase(dev) -> int:
     """Main path 2: decode requests served through the host executor and
     ``repro_torch.serve`` at ``serve_lm.CHIP_SIZES``."""
@@ -1428,6 +1481,280 @@ def llm_phase(dev, card: str) -> int:
     return launches
 
 
+TRAIN_ARCH = "mistral-nemo-12b"
+TRAIN_LAYERS = 4
+TRAIN_BATCH, TRAIN_SEQ = 2, 4096          # the train_4k shape's length
+TRAIN_TIMED = 5                           # after one warm-up step
+TRAIN_REDUCED = {
+    "n_layers": "40 -> 4 (f32 masters, gradients, mu and nu are 16 B a "
+                "parameter: 2.433 B parameters ≈ 38.9 GB at 4 layers, plus "
+                "≈ 3.5 GB of bf16 casts and ≈ 3 GB of logits chunks; 8 "
+                "layers ≈ 56 GB before activations)",
+    "global_batch": "256 -> 2 (the train_4k shape's batch, by memory)",
+}
+# the exactness check at full width in f32: 2 layers, B 1 x S 1,024
+EXACT_LAYERS, EXACT_SEQ = 2, 1024
+# f32 against f32, the same operations summed in other orders (online
+# softmax over key chunks against one softmax, chunked CE against one
+# logsumexp): the loss within 1e-5 and the global norm within 1e-4
+# relative, and each gradient leaf within 1e-4 of its largest element,
+# the rule of the CPU parity tests (tests/test_torch_train.py)
+EXACT_LOSS_RTOL, EXACT_GNORM_RTOL, EXACT_GRAD_OF_MAX = 1e-5, 1e-4, 1e-4
+
+
+def plain_loss(params, cfg, tokens):
+    """The next-token loss without the training path's devices: one
+    logsumexp over the full-sequence (B, S, V) f32 logits, the reference's
+    labels (shifted, the last 0) and mask (the last position out)."""
+    import torch
+    from repro_torch.models import api
+    logits = api.forward_logits(params, cfg, {"tokens": tokens}).float()
+    labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], 1)
+    mask = torch.ones(tokens.shape, device=tokens.device)
+    mask[:, -1] = 0.0
+    nll = torch.logsumexp(logits, -1) - \
+        logits.gather(-1, labels[..., None].long())[..., 0]
+    return (nll * mask).sum() / mask.sum()
+
+
+def train_exactness(dev) -> dict:
+    """At full width in f32 (TF32 off, as ``main`` sets it): the training
+    path (chunked attention, chunked CE, remat ``full`` and ``dots``)
+    against the plain one (``impl="naive"``, full-sequence logits, no
+    remat): loss, global gradient norm, the largest per-leaf gradient gap
+    over the leaf's largest gradient, and the peak memory of each."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+
+    base = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=EXACT_LAYERS,
+                               compute_dtype="float32")
+    params = api.init_params(torch.Generator(device=dev).manual_seed(0),
+                             base, device=dev).requires_grad_(True)
+    tokens = torch.randint(0, base.vocab_size, (1, EXACT_SEQ),
+                           dtype=torch.int32, device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(2))
+    runs = {"plain": dataclasses.replace(base, attn_impl="naive",
+                                         remat=False),
+            "full": dataclasses.replace(base, remat=True,
+                                        remat_policy="full"),
+            "dots": dataclasses.replace(base, remat=True,
+                                        remat_policy="dots")}
+    out, plain_grads = {}, None
+    for name, cfg in runs.items():
+        params.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss = plain_loss(params, cfg, tokens) if name == "plain" else \
+            api.loss_fn(params, cfg, {"tokens": tokens})
+        loss.backward()
+        torch.cuda.synchronize()
+        grads = {n: p.grad for n, p in params.named_parameters()}
+        row = {"loss": loss.item(),
+               "gnorm": torch.sqrt(sum((g.double() ** 2).sum()
+                                       for g in grads.values())).item(),
+               "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        if plain_grads is None:
+            plain_grads = {n: g.clone() for n, g in grads.items()}
+        else:
+            row["grad_gap_of_max"] = max(
+                ((g - plain_grads[n]).abs().max() /
+                 plain_grads[n].abs().max()).item()
+                for n, g in grads.items())
+        out[name] = row
+    del params, plain_grads, grads
+    torch.cuda.empty_cache()
+    for name in ("full", "dots"):
+        row, want = out[name], out["plain"]
+        row["loss_rel_gap"] = abs(row["loss"] - want["loss"]) / \
+            abs(want["loss"])
+        row["gnorm_rel_gap"] = abs(row["gnorm"] - want["gnorm"]) / \
+            want["gnorm"]
+    return out
+
+
+def _same_state(a, b) -> bool:
+    import torch
+    from repro_torch.models.transformer import tree_leaves
+    (pa, oa), (pb, ob) = a, b
+    return int(oa.step) == int(ob.step) and all(
+        torch.equal(x, y) for x, y in
+        zip(list(pa.parameters()) + tree_leaves(oa.mu) + tree_leaves(oa.nu),
+            list(pb.parameters()) + tree_leaves(ob.mu) + tree_leaves(ob.nu)))
+
+
+def train_small(dev) -> dict:
+    """The loss falls at ``examples/train_lm.py``'s settings; a run
+    stopped at step 6, checkpointed and resumed to 12 equals the straight
+    run to 12 bit for bit, under deterministic algorithms."""
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    cfg = get_config("qwen1.5-4b").reduced(d_model=256, n_layers=4,
+                                           d_ff=512, vocab_size=2048)
+    _, _, hist = train.train_loop(cfg, steps=60, seq_len=128,
+                                  global_batch=8, log_every=59,
+                                  peak_lr=1e-3, device=dev)
+    first, last = hist[0]["loss"], hist[-1]["loss"]
+    check(last < first - 0.5,
+          f"train: loss {first} -> {last}, not below the first - 0.5")
+
+    # tests/test_integration.py::_tiny_cfg, as the reference's restart test
+    tiny = get_config("qwen1.5-4b").reduced(
+        n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, head_dim=16,
+        d_ff=128, vocab_size=512)
+    kw = dict(seq_len=32, global_batch=4, log_every=1000, peak_lr=1e-3,
+              device=dev)
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    # deterministic cuBLAS products need this setting; it is set only
+    # around the check: set before the first product it changes cuBLAS's
+    # choices in every phase (the [llm] decode steps ran slower with it)
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        straight = train.train_loop(tiny, steps=12, **kw)[:2]
+        with tempfile.TemporaryDirectory(dir=build) as ck:
+            train.train_loop(tiny, steps=6, ckpt_dir=ck, ckpt_every=1000,
+                             **kw)
+            resumed = train.train_loop(tiny, steps=12, ckpt_dir=ck,
+                                       ckpt_every=1000, **kw)[:2]
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if env is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+    same = _same_state(straight, resumed)
+    check(same, "train: the resumed run differs from the straight run")
+    return {"loss_first": first, "loss_last": last,
+            "resume_bitwise": same}
+
+
+def train_phase(dev, card: str) -> None:
+    """Main path 4: ``launch.train.build_train_step`` with Mistral-NeMo-12B
+    at full width (4 layers), bf16 compute over f32 masters, chunked
+    attention, remat ``full``; then the f32 exactness check and the small
+    runs."""
+    import dataclasses
+    import statistics
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch import train
+    from repro_torch.models import api
+    from repro_torch.optim import adamw_init, cosine_schedule
+
+    print(f"[train] reduced: {json.dumps(TRAIN_REDUCED, ensure_ascii=False)}",
+          flush=True)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS,
+                              compute_dtype="bfloat16", attn_impl="chunked",
+                              remat=True, remat_policy="full")
+    params = api.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                             device=dev)
+    n_params = api.count_params(params)
+    n_embed = params.embed.table.numel()
+    opt = adamw_init(params)
+    data = SyntheticTokens(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    kw = dict(peak_lr=3e-4, warmup=100, total_steps=10_000)
+    step_fn = train.build_train_step(cfg, **kw)
+
+    def run(step):
+        batch = {"tokens": data.batch_at(step)["tokens"].to(dev)}
+        return step_fn(params, opt, batch, step)[2]
+
+    run(0)                                         # warm-up; lr(0) = 0
+    torch.cuda.synchronize()
+    before = [p.detach().to("cpu", copy=True) for p in params.parameters()]
+    torch.cuda.reset_peak_memory_stats()
+    ms, metrics = [], []
+    for step in range(1, TRAIN_TIMED + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = run(step)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    peak = torch.cuda.max_memory_allocated()
+    unchanged = [n for (n, p), b in zip(params.named_parameters(), before)
+                 if torch.equal(p.detach().cpu(), b)]
+    del before
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function("train/step"):
+            run(TRAIN_TIMED + 1)
+            torch.cuda.synchronize()
+    idle, busy_ms, window_s = _idle_share(prof, "train/step")
+    kernels = [k for k in _device_ms_by_kernel(prof) if k[0] != "train/step"]
+    ops = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                  for e in prof.key_averages()
+                  if e.self_device_time_total > 0 and e.key != "train/step"),
+                 key=lambda t: -t[1])
+    del params, opt, prof
+    torch.cuda.empty_cache()
+
+    step_ms = statistics.median(ms)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = 6 * (n_params - n_embed) * tokens + \
+        6 * cfg.n_layers * TRAIN_BATCH * cfg.n_heads * TRAIN_SEQ ** 2 * \
+        cfg.head_dim
+    tflops = flops / (step_ms / 1e3) / 1e12
+    lrs = [float(cosine_schedule(s, peak_lr=kw["peak_lr"],
+                                 warmup_steps=kw["warmup"],
+                                 total_steps=kw["total_steps"]))
+           for s in range(1, TRAIN_TIMED + 1)]
+    print("[train] " + json.dumps(dict(
+        card=card, arch=TRAIN_ARCH, n_layers=cfg.n_layers,
+        d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads,
+                                    cfg.head_dim],
+        d_ff=cfg.d_ff, vocab=cfg.vocab_size, compute_dtype=cfg.compute_dtype,
+        attn_impl=cfg.attn_impl, remat=cfg.remat_policy, batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, params=n_params, params_less_embedding=n_params -
+        n_embed, step_ms=step_ms, step_ms_all=ms,
+        tok_per_s=tokens / (step_ms / 1e3), peak_memory_bytes=peak,
+        model_tflop_per_step=flops / 1e12, model_tflops=tflops,
+        share_of_989=tflops / 989.0, profiled_window_s=window_s,
+        device_busy_ms=busy_ms, idle_share=idle,
+        idle_share_of_timed_step=None if busy_ms is None else
+        1.0 - busy_ms / step_ms,
+        loss=[m["loss"] for m in metrics],
+        gnorm=[m["gnorm"] for m in metrics], lr=[m["lr"] for m in metrics],
+        top_ops_ms=[[name[:40], t, n] for name, t, n in ops[:12]],
+        top_kernels_ms=[[name[:70], t, n] for name, t, n in kernels[:12]])),
+        flush=True)
+    check(all(math.isfinite(m["loss"]) and math.isfinite(m["gnorm"])
+              for m in metrics), "train: a loss or gnorm is not finite")
+    check(all(m["gnorm"] > 0 for m in metrics), "train: a gnorm is 0")
+    check(not unchanged, f"train: leaves unchanged by 5 steps: {unchanged}")
+    check([m["lr"] for m in metrics] == lrs,
+          f"train: lr {[m['lr'] for m in metrics]} != cosine_schedule's "
+          f"{lrs}")
+
+    exact = train_exactness(dev)
+    small = train_small(dev)
+    print("[train] " + json.dumps(dict(exactness=exact, small=small,
+                                       tolerances=dict(
+                                           loss_rtol=EXACT_LOSS_RTOL,
+                                           gnorm_rtol=EXACT_GNORM_RTOL,
+                                           grad_gap_of_max=EXACT_GRAD_OF_MAX)
+                                       )), flush=True)
+    for name in ("full", "dots"):
+        row = exact[name]
+        check(row["loss_rel_gap"] <= EXACT_LOSS_RTOL,
+              f"train f32 {name}: loss gap {row['loss_rel_gap']}")
+        check(row["gnorm_rel_gap"] <= EXACT_GNORM_RTOL,
+              f"train f32 {name}: gnorm gap {row['gnorm_rel_gap']}")
+        check(row["grad_gap_of_max"] <= EXACT_GRAD_OF_MAX,
+              f"train f32 {name}: gradient gap {row['grad_gap_of_max']} of "
+              "the leaf's largest")
+
+
 PARITY_SIZES = {
     "black_scholes": dict(n_options=8192, task_options=512),
     "matmul": dict(n=256, tile=64),
@@ -1505,6 +1832,8 @@ def main() -> int:
     launches, central = app_phase(dev)
     launches["flash_decode"] = serve_phase(dev)
     launches["flash_attention"] = llm_phase(dev, card)
+    torch.cuda.empty_cache()
+    train_phase(dev, card)
     by_path = {"depman": depman_phase(dev, central),
                "sharded": sharded_phase(dev, central),
                "fuzz": {"matmul_batched": fuzz_phase(dev)}}

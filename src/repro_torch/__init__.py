@@ -11,10 +11,14 @@ serving loops::
 
     from repro_torch.serve import ServeConfig, Session
 
-and a dense LLM server (prefill through the hand-written flash-attention
+a dense LLM server (prefill through the hand-written flash-attention
 kernel, then greedy decode)::
 
     from repro_torch.launch.serve import generate
+
+and its trainer (chunked-CE loss, remat, AdamW, pytree checkpoints)::
+
+    from repro_torch.launch.train import build_train_step, train_loop
 
 This package imports neither JAX nor ``repro``; ``repro`` stays the
 reference the tests hold it against.

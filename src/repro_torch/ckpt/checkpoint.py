@@ -1,18 +1,30 @@
-"""Epoch-tagged per-home ``BlockArray`` tile checkpoints (the serving
+"""Checkpoints of training state (pytrees: the step checkpoints) and
+epoch-tagged per-home ``BlockArray`` tile checkpoints (the serving
 session's shared state).
 
-The layout and the ``.npz`` keys are the JAX package's
+The layouts, the leaf paths and the ``.npz`` keys are the JAX package's
 (``src/repro/ckpt/checkpoint.py``), so a checkpoint written by either
 package restores in the other::
+
+    <dir>/step_<k>/manifest.json     # leaf paths, shapes, dtypes, meta
+    <dir>/step_<k>/arr_<i>.npy       # one file per leaf
+    <dir>/step_<k>/_COMMITTED        # written last -> crash-safe commit
 
     <dir>/epoch_<e>/manifest.json    # array geometry, homes, meta
     <dir>/epoch_<e>/home_<h>.npz     # "<name>|i,j" -> tile (npy inside)
     <dir>/epoch_<e>/_COMMITTED       # written last -> crash-safe commit
 
-Tiles are snapshotted to host memory synchronously (one device-to-host
-copy per tile), then each home's file is written by its own daemon
-thread.  ``np.savez`` stores raw npy records: the round trip is
-bit-identical.
+A tree is nested tuples, lists, named tuples (``AdamWState``), dicts
+and ``nn.Module``s (a ``Decoder``, as its parameter tree) over tensors;
+each leaf is named by the reference's ``jax.tree_util`` path string
+(``[0]/['blocks']/['attn']/['wq']/['w']``, ``[1]/.nu/['embed']/['table']``,
+``[1]/.step``), dict keys sorted as JAX sorts them.  Leaves and tiles
+are snapshotted to host memory synchronously (one device-to-host copy
+each), then written by daemon threads when ``async_save``.  ``np.save``
+and ``np.savez`` store raw npy records: the round trip is bit-identical.
+Placing restored leaves by sharding rules (the reference's
+``shardings=``) waits for the training mesh hooks (ROADMAP queue 1 item
+12).
 """
 from __future__ import annotations
 
@@ -25,10 +37,121 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..core.blocks import dtype_name
+from ..models.transformer import tree as param_tree
 
-__all__ = ["save_tiles", "latest_epoch", "restore_tiles"]
+__all__ = ["save_checkpoint", "latest_step", "restore_checkpoint",
+           "save_tiles", "latest_epoch", "restore_tiles"]
+
+
+def _leaves_with_paths(node, prefix: str = "") -> list[tuple[str, Any]]:
+    """(path, leaf) pairs in ``jax.tree_util``'s order and notation."""
+    def sub(key: str) -> str:
+        return f"{prefix}/{key}" if prefix else key
+
+    if node is None:
+        return []
+    if isinstance(node, nn.Module):
+        node = param_tree(node)
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return [pair for name in node._fields
+                for pair in _leaves_with_paths(getattr(node, name),
+                                               sub(f".{name}"))]
+    if isinstance(node, (tuple, list)):
+        return [pair for i, child in enumerate(node)
+                for pair in _leaves_with_paths(child, sub(f"[{i}]"))]
+    if isinstance(node, dict):
+        return [pair for key in sorted(node)
+                for pair in _leaves_with_paths(node[key], sub(f"[{key!r}]"))]
+    return [(prefix, node)]
+
+
+def _to_host(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        # a copy, so the writer never reads a tensor training updates
+        return leaf.detach().to("cpu", copy=True).numpy()
+    return np.array(leaf)
+
+
+def save_checkpoint(directory: str, step: int, tree, *, meta: dict | None
+                    = None, async_save: bool = False):
+    """Serialize a tree of tensors.  Returns the checkpoint path (or the
+    writer thread when ``async_save``: the leaves are on the host before
+    it starts, so training may update them at once)."""
+    pairs = _leaves_with_paths(tree)
+    paths = [p for p, _ in pairs]
+    host_leaves = [_to_host(leaf) for _, leaf in pairs]
+
+    def write():
+        out = os.path.join(directory, f"step_{step:08d}")
+        tmp = out + ".tmp"
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp, exist_ok=True)
+        manifest = {"step": step, "meta": meta or {}, "leaves": []}
+        for i, (p, arr) in enumerate(zip(paths, host_leaves)):
+            np.save(os.path.join(tmp, f"arr_{i}.npy"), arr)
+            manifest["leaves"].append(
+                {"path": p, "shape": list(arr.shape),
+                 "dtype": str(arr.dtype), "file": f"arr_{i}.npy"})
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f, indent=1)
+        with open(os.path.join(tmp, "_COMMITTED"), "w") as f:
+            f.write("ok")
+        shutil.rmtree(out, ignore_errors=True)
+        os.replace(tmp, out)
+        return out
+
+    if async_save:
+        t = threading.Thread(target=write, daemon=True,
+                             name=f"ckpt-writer-{step}")
+        t.start()
+        return t
+    return write()
+
+
+def latest_step(directory: str) -> int | None:
+    """Newest *committed* step checkpoint under ``directory`` (None when
+    there is none — a crash mid-write leaves no marker)."""
+    if not os.path.isdir(directory):
+        return None
+    best = None
+    for name in os.listdir(directory):
+        m = re.fullmatch(r"step_(\d+)", name)
+        if m and os.path.exists(os.path.join(directory, name, "_COMMITTED")):
+            s = int(m.group(1))
+            best = s if best is None else max(best, s)
+    return best
+
+
+@torch.no_grad()
+def restore_checkpoint(directory: str, step: int, like_tree):
+    """Restore into ``like_tree``: every tensor leaf (a ``Decoder``'s
+    parameters among them) is filled in place, cast to its dtype on its
+    device.  Raises on a missing, extra or misshapen leaf.  Returns
+    ``(like_tree, meta, step)``."""
+    src = os.path.join(directory, f"step_{step:08d}")
+    with open(os.path.join(src, "manifest.json")) as f:
+        manifest = json.load(f)
+    pairs = _leaves_with_paths(like_tree)
+    by_path = {e["path"]: e for e in manifest["leaves"]}
+    paths = {p for p, _ in pairs}
+    if paths != set(by_path):
+        missing = paths - set(by_path)
+        extra = set(by_path) - paths
+        raise ValueError(f"checkpoint/tree mismatch: missing="
+                         f"{sorted(missing)[:4]} extra={sorted(extra)[:4]}")
+    for p, like in pairs:
+        if not isinstance(like, torch.Tensor):
+            raise TypeError(f"{p}: restore fills tensors in place, got "
+                            f"{type(like).__name__}")
+        arr = np.load(os.path.join(src, by_path[p]["file"]))
+        if tuple(arr.shape) != tuple(like.shape):
+            raise ValueError(f"{p}: shape {arr.shape} != "
+                             f"{tuple(like.shape)}")
+        like.copy_(torch.from_numpy(arr))
+    return like_tree, manifest["meta"], manifest["step"]
 
 
 def _tile_key(name: str, idx: tuple[int, ...]) -> str:

@@ -7,8 +7,10 @@ configuration as a dict of ``RuntimeConfig`` fields
 (``dataclasses.asdict`` of a ``repro`` config; its ``SCCParams`` as a
 dict of fields too), and model weights as the reference's parameter
 pytree of numpy arrays
-(``jax.tree_util.tree_map(np.asarray, params)``).  The parity tests build
-both packages' inputs through these functions.
+(``jax.tree_util.tree_map(np.asarray, params)``), and an AdamW state as
+the reference's ``AdamWState`` mapped the same way (or any object with
+``step``, ``mu`` and ``nu``).  The parity tests build both packages'
+inputs through these functions.
 """
 from __future__ import annotations
 
@@ -23,9 +25,11 @@ from .core.api import RuntimeConfig
 from .core.blocks import BlockArray
 from .core.costmodel import SCCParams
 from .models.transformer import Decoder, tree, tree_map
+from .optim.adamw import AdamWState
 
 __all__ = ["blockarray_from_numpy", "tiles_to_numpy", "config_from_reference",
-           "params_from_reference", "params_to_numpy"]
+           "params_from_reference", "params_to_numpy",
+           "opt_state_from_reference", "opt_state_to_numpy"]
 
 
 def blockarray_from_numpy(tiles: Mapping[tuple, np.ndarray],
@@ -146,3 +150,28 @@ def params_to_numpy(decoder: Decoder) -> dict:
     """The reference's parameter pytree (nested dicts of numpy arrays) of
     a port ``Decoder`` — the form :func:`params_from_reference` takes."""
     return tree_map(lambda t: t.detach().cpu().numpy(), tree(decoder))
+
+
+def opt_state_from_reference(state, device: torch.device | str = "cuda"
+                             ) -> AdamWState:
+    """The port's ``AdamWState`` on ``device`` holding a reference AdamW
+    state given with numpy leaves: step as a 0-dim int32 tensor, mu and
+    nu as f32 trees with the reference's keys (those of the parameter
+    tree, ``params_from_reference``)."""
+    def leaf(x):
+        return torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
+
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                          device=device),
+        mu=tree_map(leaf, state.mu), nu=tree_map(leaf, state.nu))
+
+
+def opt_state_to_numpy(state: AdamWState) -> AdamWState:
+    """A port AdamW state with numpy leaves (step an int32 0-dim array),
+    field for field what :func:`opt_state_from_reference` takes."""
+    def leaf(t):
+        return t.detach().cpu().numpy()
+
+    return AdamWState(step=leaf(state.step), mu=tree_map(leaf, state.mu),
+                      nu=tree_map(leaf, state.nu))

@@ -6,10 +6,13 @@ block weights are stacked on a leading layer axis; the functions take
 them as nested dicts of tensors, as the reference's take pytrees.
 Prefill attention runs through the chunked online-softmax path or the
 hand-written flash kernel (``attn_impl="pallas"``); decode uses plain
-einsums over the KV cache, as the reference's does.
+einsums over the KV cache, as the reference's does.  Training
+(``loss_fn``, ``launch.train``) differentiates the chunked path, the
+config default, under remat; the flash kernel has no backward.
 """
 from .api import (count_params, decode_step, forward_logits, init_cache,
-                  init_params, pad_caches, prefill_step, prepare)
+                  init_params, loss_fn, pad_caches, prefill_step, prepare)
 
-__all__ = ["init_params", "count_params", "prepare", "forward_logits",
-           "prefill_step", "decode_step", "init_cache", "pad_caches"]
+__all__ = ["init_params", "count_params", "prepare", "loss_fn",
+           "forward_logits", "prefill_step", "decode_step", "init_cache",
+           "pad_caches"]

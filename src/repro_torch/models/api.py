@@ -1,21 +1,23 @@
-"""Public model API: init / prefill / decode over a ``Decoder`` (the JAX
-package's ``models/api.py``; ``loss_fn`` comes with the training path).
+"""Public model API: init / loss / prefill / decode over a ``Decoder``
+(the JAX package's ``models/api.py``).
 
 Each function takes the parameters either as the ``Decoder`` itself,
 whose f32 masters it casts for compute on every call as the reference
 does at every forward, or as the tree :func:`prepare` made once, which
 ``launch.serve.generate`` hands to every step so the cast is not
-repeated per token.
+repeated per token.  :func:`loss_fn` casts inside the autograd graph,
+so the f32 masters receive the gradients (``launch.train``).
 """
 from __future__ import annotations
 
 import torch
 
 from . import transformer
-from .layers import logits_out
+from .layers import cross_entropy_loss, logits_out
 
-__all__ = ["init_params", "count_params", "prepare", "forward_logits",
-           "prefill_step", "decode_step", "init_cache", "pad_caches"]
+__all__ = ["init_params", "count_params", "prepare", "loss_fn",
+           "forward_logits", "prefill_step", "decode_step", "init_cache",
+           "pad_caches"]
 
 
 def init_params(generator: torch.Generator, cfg, *, device="cuda"):
@@ -60,6 +62,29 @@ def _logits_fn(p, cfg):
 
 
 # ---------------------------------------------------------------------------
+def loss_fn(params, cfg, batch):
+    """batch: {"tokens": (B, S) int, "loss_mask": (B, S) opt}.  Next-token
+    CE (a 0-dim f32 tensor) through the chunked loss: the label of the
+    last position is 0 and masked out, ``loss_mask`` multiplies the mask,
+    and the first ``cfg.vision_seq`` positions (a vision stub's) carry
+    no label.  Differentiate it with ``loss.backward()`` after
+    ``params.requires_grad_(True)``."""
+    tokens = batch["tokens"]
+    p = prepare(params, cfg)
+    hidden, _ = transformer.forward(p, cfg, tokens, mode="train")
+    labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], 1)
+    mask = torch.cat([torch.ones_like(tokens[:, 1:], dtype=torch.float32),
+                      torch.zeros_like(tokens[:, :1], dtype=torch.float32)],
+                     1)
+    if batch.get("loss_mask") is not None:
+        mask = mask * batch["loss_mask"].float()
+    if cfg.vision_seq:
+        vis = torch.arange(tokens.shape[1], device=tokens.device) < \
+            cfg.vision_seq
+        mask = mask * (~vis[None, :]).float()
+    return cross_entropy_loss(_logits_fn(p, cfg), hidden, labels, mask)
+
+
 def forward_logits(params, cfg, batch):
     """Full-sequence logits (small configs / tests only)."""
     p = prepare(params, cfg)

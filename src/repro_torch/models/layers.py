@@ -1,4 +1,4 @@
-"""Shared layers: norms, linears, FFN variants, embeddings.
+"""Shared layers: norms, linears, FFN variants, embeddings, the loss.
 
 The parameter containers are ``nn.Module``s whose parameter names are the
 JAX package's pytree keys (``w``/``b``, ``scale``/``bias``, ``table``),
@@ -7,21 +7,24 @@ Each draws its weights with :meth:`reset_parameters` from an explicit
 ``torch.Generator``, in the reference's distribution.  The functions
 (:func:`linear`, :func:`norm`, :func:`ffn`, :func:`embed`,
 :func:`logits_out`) take the parameters as nested dicts of tensors, as
-the reference's take pytrees.  ``cross_entropy_loss`` comes with the
-training path.
+the reference's take pytrees.  :func:`cross_entropy_loss` is the
+training loss.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 __all__ = ["Linear", "Norm", "FFN", "Embedding", "draw", "linear", "norm",
-           "ffn", "embed", "logits_out"]
+           "ffn", "embed", "logits_out", "cross_entropy_loss"]
 
 
 def _param(shape, device) -> nn.Parameter:
-    # inference only until the training path is ported: no gradients
+    # created without gradients, so serving never records a graph (and
+    # the flash kernel, which has no backward, takes the activations);
+    # the trainer turns them on (``launch.train``: requires_grad_(True))
     return nn.Parameter(torch.empty(shape, dtype=torch.float32,
                                     device=device), requires_grad=False)
 
@@ -154,3 +157,38 @@ def logits_out(p_head, x, *, tied_table=None, scale: float | None = None):
     if scale is not None:
         y = y * scale
     return y
+
+
+# -- loss ------------------------------------------------------------------------
+def cross_entropy_loss(logits_fn, hidden, labels, mask, *,
+                       chunk: int = 1024):
+    """Next-token CE computed in sequence chunks so the (B, S, V) logits
+    tensor never materializes (vital for 100k+ vocabularies).
+
+    ``logits_fn``: hidden chunk (B, c, D) -> logits (B, c, V).
+    ``labels``/``mask``: (B, S) int / float.  ``chunk`` becomes S when it
+    does not divide S, as in the reference.  Each chunk runs under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``): its
+    (B, c, V) logits are recomputed in the backward pass instead of
+    being kept once per chunk.  The logsumexp and the gold logit are
+    taken in f32.
+    """
+    _, s, _ = hidden.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        chunk = s
+
+    def body(h, y, m):
+        lg = logits_fn(h).float()                        # (B, c, V)
+        lse = torch.logsumexp(lg, dim=-1)
+        gold = lg.gather(-1, y[..., None].long())[..., 0]
+        return ((lse - gold) * m).sum()
+
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, s, chunk):
+        m = mask[:, i:i + chunk]
+        tot = tot + checkpoint(body, hidden[:, i:i + chunk],
+                               labels[:, i:i + chunk], m, use_reentrant=False)
+        cnt = cnt + m.sum()
+    return tot / torch.clamp(cnt, min=1.0)

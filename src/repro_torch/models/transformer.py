@@ -3,16 +3,22 @@ package's ``models/transformer.py``).
 
 The block parameters are stacked on a leading layer axis, as the
 reference's ``_stack_init`` stacks them, and the reference's ``lax.scan``
-over that axis is a Python loop over layer indices.  The other families
+over that axis is a Python loop over the layers, each under
+:func:`_remat` in training (``cfg.remat``, ``cfg.remat_policy``), the
+counterpart of the reference's ``jax.checkpoint``.  The other families
 (``moe``, ``vlm``, ``hybrid``, ``ssm``, ``audio``) raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from . import attention as attn_mod
 from .layers import FFN, Embedding, Linear, Norm, draw, embed, ffn, norm
@@ -146,8 +152,19 @@ def tree(module: nn.Module) -> dict[str, Any]:
 
 
 def tree_map(fn, t):
-    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
-            for k, v in t.items()}
+    """``fn`` over the leaves of a nested dict (or over ``t`` itself when
+    it is not a dict)."""
+    if not isinstance(t, dict):
+        return fn(t)
+    return {k: tree_map(fn, v) for k, v in t.items()}
+
+
+def tree_leaves(t) -> list:
+    """The leaves of a nested dict in the reference's pytree order (keys
+    sorted at every level, as ``jax.tree_util`` sorts dict keys)."""
+    if not isinstance(t, dict):
+        return [t]
+    return [leaf for k in sorted(t) for leaf in tree_leaves(t[k])]
 
 
 def _positions(tokens_shape, offset=0, device=None):
@@ -181,29 +198,61 @@ def forward(p, cfg, tokens, *, mode: str = "train", caches=None, pos=None):
     return x, caches
 
 
-def _layer(stacked, i: int):
-    return tree_map(lambda a: a[i], stacked)
+# the non-batched matrix products (``x @ w``: aten.mm, or aten.addmm with
+# a bias), the outputs ``dots_with_no_batch_dims_saveable`` keeps
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+
+
+def _remat(f, cfg):
+    """``f`` as the reference's ``_remat`` wraps it: unchanged when
+    ``cfg.remat`` is off; under ``torch.utils.checkpoint`` (everything
+    recomputed in the backward pass) for ``remat_policy="full"``; for
+    ``"dots"`` a selective checkpoint that keeps the outputs of the
+    non-batched matrix products and recomputes the rest.  The values do
+    not depend on the policy, only what the backward pass recomputes."""
+    if not cfg.remat:
+        return f
+    context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                   _DOTS) \
+        if cfg.remat_policy == "dots" else noop_context_fn
+
+    def g(*args):
+        return checkpoint(f, *args, use_reentrant=False,
+                          context_fn=context_fn)
+    return g
+
+
+def _unstack(stacked) -> list[dict]:
+    """One parameter tree per layer, views of the stacked leaves (one
+    ``unbind`` a leaf, so the backward pass stacks the layers' gradients
+    once)."""
+    cols = tree_map(lambda a: a.unbind(0), stacked)
+    n = stacked["ln1"]["scale"].shape[0]
+    return [tree_map(lambda c: c[i], cols) for i in range(n)]
 
 
 def _run_attn_stack(stacked, x, cfg, positions, mode, caches, pos, *,
                     moe_layer: bool):
-    n = stacked["ln1"]["scale"].shape[0]
+    layers = _unstack(stacked)
     if mode == "train":
-        for i in range(n):
-            x, _ = block_apply(_layer(stacked, i), x, cfg, positions,
-                               moe_layer=moe_layer, mode="train")
+        def body(h, p_l):
+            return block_apply(p_l, h, cfg, positions, moe_layer=moe_layer,
+                               mode="train")[0]
+        f = _remat(body, cfg)
+        for p_l in layers:
+            x = f(x, p_l)
         return x, None
     if mode == "prefill":
         ks, vs = [], []
-        for i in range(n):
-            x, c = block_apply(_layer(stacked, i), x, cfg, positions,
-                               moe_layer=moe_layer, mode="prefill")
+        for p_l in layers:
+            x, c = block_apply(p_l, x, cfg, positions, moe_layer=moe_layer,
+                               mode="prefill")
             ks.append(c["k"])
             vs.append(c["v"])
         return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
-    for i in range(n):
-        x, _ = block_apply(_layer(stacked, i), x, cfg, None,
-                           moe_layer=moe_layer, mode="decode",
+    for i, p_l in enumerate(layers):
+        x, _ = block_apply(p_l, x, cfg, None, moe_layer=moe_layer,
+                           mode="decode",
                            cache={"k": caches["k"][i], "v": caches["v"][i]},
                            pos=pos)
     return x, caches

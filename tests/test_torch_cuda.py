@@ -24,7 +24,10 @@ differential corpus on the card under the sharded dependence managers
 The sharded-executor tests run the apps with no mesh, on
 ``single_device_mesh`` and on 4 logical devices of the card, the
 reference's 2-device gemm program on logical devices, and the same
-program across two cards (skipped below two CUDA devices).
+program across two cards (skipped below two CUDA devices).  The training
+tests hold the training path (chunked attention, chunked CE, both remat
+policies) against the plain one in f32, and a resumed training run
+against the straight one, bit for bit, under deterministic algorithms.
 """
 import pytest
 import torch
@@ -667,3 +670,84 @@ def test_cuda_sharded_gemm_across_cards(cuda_device):
     assert st.bytes_moved == st.cross_home_bytes == \
         g ** 3 // 2 * block_bytes
     assert st.bytes_staged == 0
+
+
+# ---------------------------------------------------------------------------
+# the training path on the card
+def _plain_loss(params, cfg, tokens):
+    """One logsumexp over the full-sequence f32 logits; the reference's
+    labels (shifted, the last 0) and mask (the last position out)."""
+    logits = api.forward_logits(params, cfg, {"tokens": tokens}).float()
+    labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], 1)
+    mask = torch.ones(tokens.shape, device=tokens.device)
+    mask[:, -1] = 0.0
+    nll = torch.logsumexp(logits, -1) - \
+        logits.gather(-1, labels[..., None].long())[..., 0]
+    return (nll * mask).sum() / mask.sum()
+
+
+@pytest.mark.cuda
+def test_cuda_training_path_matches_the_plain_path(cuda_device):
+    """f32, TF32 off: the loss through chunked attention, the chunked CE
+    and remat ``full`` and ``dots`` against naive attention, full logits
+    and no remat; the loss within 1e-5 relative and every gradient leaf
+    within 1e-5 + 1e-4 * max|g| (the same sums in other orders; the CPU
+    parity tests' rule)."""
+    import dataclasses
+    base = configs.get_config("mistral-nemo-12b").reduced(
+        n_layers=2, d_model=512, head_dim=128, d_ff=1024, vocab_size=4096)
+    params = api.init_params(torch.Generator(device=cuda_device)
+                             .manual_seed(0), base,
+                             device=cuda_device).requires_grad_(True)
+    tokens = torch.randint(0, base.vocab_size, (2, 256), dtype=torch.int32,
+                           device=cuda_device, generator=torch.Generator(
+                               device=cuda_device).manual_seed(1))
+    results = {}
+    for name, cfg in (
+            ("plain", dataclasses.replace(base, attn_impl="naive",
+                                          remat=False)),
+            ("full", dataclasses.replace(base, remat_policy="full")),
+            ("dots", dataclasses.replace(base, remat_policy="dots"))):
+        params.zero_grad(set_to_none=True)
+        loss = _plain_loss(params, cfg, tokens) if name == "plain" else \
+            api.loss_fn(params, cfg, {"tokens": tokens})
+        loss.backward()
+        results[name] = (loss.item(), {n: p.grad.clone() for n, p in
+                                       params.named_parameters()})
+    want_loss, want = results["plain"]
+    for name in ("full", "dots"):
+        loss, grads = results[name]
+        assert abs(loss - want_loss) <= 1e-5 * abs(want_loss), name
+        for n, g in grads.items():
+            tol = 1e-5 + 1e-4 * want[n].abs().max().item()
+            assert (g - want[n]).abs().max().item() <= tol, (name, n)
+
+
+@pytest.mark.cuda
+def test_cuda_train_resume_is_bitwise_under_deterministic_algorithms(
+        cuda_device, tmp_path, monkeypatch):
+    """Stop at step 6, checkpoint, resume to 12 == the straight run to 12,
+    bit for bit, on the card."""
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import tree_leaves
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = configs.get_config("qwen1.5-4b").reduced(
+        n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, head_dim=16,
+        d_ff=128, vocab_size=512)
+    kw = dict(seq_len=32, global_batch=4, log_every=1000, peak_lr=1e-3,
+              device=cuda_device)
+    torch.use_deterministic_algorithms(True)
+    try:
+        p_a, o_a, _ = train.train_loop(cfg, steps=12, **kw)
+        ck = str(tmp_path / "ck")
+        train.train_loop(cfg, steps=6, ckpt_dir=ck, ckpt_every=1000, **kw)
+        p_b, o_b, _ = train.train_loop(cfg, steps=12, ckpt_dir=ck,
+                                       ckpt_every=1000, **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert int(o_a.step) == int(o_b.step) == 12
+    for a, b in zip(list(p_a.parameters()) + tree_leaves(o_a.mu) +
+                    tree_leaves(o_a.nu),
+                    list(p_b.parameters()) + tree_leaves(o_b.mu) +
+                    tree_leaves(o_b.nu)):
+        assert a.device.type == "cuda" and torch.equal(a, b)
