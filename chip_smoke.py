@@ -33,10 +33,12 @@ Phases, each of which must pass (any failure exits non-zero):
    both dtypes, the prefill continuation, the rows that see no key, group
    6, ragged Sq and Skv and head dims 32, 64 and 128, then at the prefill
    path's shape (Mistral-NeMo-12B's
-   GQA width, B 4 x 1,024 tokens, bf16, causal), which is timed, as is
-   B 1 x 8,192 tokens.  ``bound_ms`` is the least time the card could
-   take: the bytes the function must move over 3.35 TB/s or its
-   operations over the peak for their type, 67 TFLOP/s FP32 or 989
+   GQA width, B 4 x 1,024 tokens, bf16, causal), which is timed, as are
+   B 1 x 8,192 tokens and Granite-3.0-1B-A400M's prefill (B 4, Hq 16,
+   Hkv 8, 1,024 tokens, head dim 64).  ``bound_ms`` is the least time
+   the card could take: the bytes the function must move over 3.35
+   TB/s or its operations over the peak for their type, 67 TFLOP/s FP32
+   or 989
    TFLOP/s bf16 on the tensor cores (H100 SXM data sheet, read from
    ``repro_torch.core.costmodel.H100Params``), the larger.
    Flash attention counts 4 D operations per visible (query, key) pair.
@@ -146,11 +148,32 @@ Phases, each of which must pass (any failure exits non-zero):
    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` set around that check only (set
    before the first product it slowed the LLM phase's decode steps).
    No kernel of ``csrc/`` runs here.
+14. MoE (main path 5, run right after phase 6, whose memory it frees):
+   ``launch.serve.generate`` with the MoE family at full width, weights
+   from seed 0, bf16 compute over f32 masters, B 4 prompts of 1,024
+   tokens and 32 greedy steps, timed as phase 6 times them:
+   DeepSeek-V2-Lite (MLA, 64 routed + 2 shared experts top-6) cut to 8
+   of its 27 layers (``MOE_REDUCED``, printed on the first ``[moe]``
+   line), whose path runs no kernel of ``csrc/`` (MLA attention stays
+   chunked, as in the reference), and Granite-3.0-1B-A400M (GQA, 32
+   experts top-8) at all 24 layers with ``attn_impl="pallas"``: the
+   flash-attention counter is zeroed just before and read just after its
+   ``generate``, one launch per layer.  Checks: the tokens' shape and
+   range, finite logits; Granite's kernel prefill logits against the
+   plain ``chunked`` path within 1e-3 in f32 (2 layers) and within a
+   quarter of the logits' std in bf16 (drop-free, reason at
+   ``BF16_LOGIT_TOL``); at DeepSeek's full width in f32 (2 layers, B 1 x
+   256, capacity factor E/k, nothing dropped) the decode step against
+   the full forward within 2e-3, ``moe_ffn_ep`` against
+   ``moe_ffn_ref`` within 1e-4, the absorbed ``mla_decode`` against
+   ``mla_train``'s last row within 2e-3, and ``moe_ffn_ep`` on a 2 x 2
+   mesh of 4 logical devices of the card (B 2 x 32) against
+   ``moe_ffn_ref`` within 1e-4, its exchanges moving exactly the bytes
+   of the chunks that change device.  Prints what phase 6 prints.
 
 Then one JSON line of kernel results (each row's ``launches`` from phase
-4, 5 or 6, and in ``launches_by_path`` those of phases 7, 8 and 9), the
-card
-line again, and last ``{"ok": true, "device": {...}}``.
+4, 5 or 6, and in ``launches_by_path`` those of phases 7, 8, 9 and 14),
+the card line again, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -463,6 +486,8 @@ def kernel_phase(dev) -> list[dict]:
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:81",
         wide=fa_case(1, 32, 8, 8192, 8192, 128, torch.bfloat16),
+        # Granite-3.0-1B-A400M's prefill (the MoE phase): head dim 64, G 2
+        granite=fa_case(4, 16, 8, 1024, 1024, 64, torch.bfloat16),
         **prefill_case))
 
     results = []
@@ -527,7 +552,7 @@ def kernel_phase(dev) -> list[dict]:
 
 
 # a kernel row's other shapes and dtypes, each timed beside the row's own
-EXTRA_CASES = ("wide", "bf16", "bf16_wide")
+EXTRA_CASES = ("wide", "bf16", "bf16_wide", "granite")
 
 
 def parity_of_black_scholes(dev, gen) -> None:
@@ -1366,47 +1391,36 @@ def llm_diffs(cfg, params, tokens) -> tuple[float, float, float]:
     return d_impl, d_tf, std
 
 
-def llm_phase(dev, card: str) -> int:
-    """Main path 3: ``launch.serve.generate`` with Mistral-NeMo-12B at full
-    width (8 layers), prefill through the flash-attention kernel."""
-    import dataclasses
-    import statistics
+def serve_timed(cfg, params, batch, new_tokens: int, span: str) -> dict:
+    """Drive ``launch.serve.generate`` as a user does, on the card: a
+    warm-up, a timed ``generate`` (flash-attention launches counted from
+    0 just before it to just after, peak device memory), the same steps
+    one by one, synchronized (prefill ms, decode ms a step, finite
+    logits, the same tokens), and a profiled ``generate`` (the device's
+    idle share inside ``span``, the most device time by kernel)."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.launch import serve
     from repro_torch.models import api
 
-    cfg = dataclasses.replace(get_config(LLM_ARCH), n_layers=LLM_LAYERS,
-                              attn_impl="pallas")
-    print(f"[llm] reduced: {json.dumps(LLM_REDUCED, ensure_ascii=False)}",
-          flush=True)
-    params = api.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
-                             device=dev)
-    n_params = api.count_params(params)
-    tokens = torch.randint(
-        0, cfg.vocab_size, (LLM_BATCH, LLM_PROMPT), dtype=torch.int32,
-        generator=torch.Generator(device=dev).manual_seed(1), device=dev)
-    batch = {"tokens": tokens}
-    max_len = LLM_PROMPT + LLM_NEW + 8          # the reference main's rule
+    tokens = batch["tokens"]
+    b, prompt = tokens.shape
+    max_len = prompt + new_tokens + 8           # the reference main's rule
     serve.generate(cfg, params, batch, max_new_tokens=1, max_len=max_len)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.flash_attention.launches = 0
     t0 = time.perf_counter()
-    out = serve.generate(cfg, params, batch, max_new_tokens=LLM_NEW,
+    out = serve.generate(cfg, params, batch, max_new_tokens=new_tokens,
                          max_len=max_len)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = fa.flash_attention.launches
     peak = torch.cuda.max_memory_allocated()
-    check(launches == cfg.n_layers,
-          f"llm: {launches} flash_attention launches, expected "
-          f"{cfg.n_layers}")
-    check(tuple(out.shape) == (LLM_BATCH, LLM_NEW) and
+    check(tuple(out.shape) == (b, new_tokens) and
           int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size,
-          f"llm: tokens {tuple(out.shape)} out of shape or range")
+          f"{span}: tokens {tuple(out.shape)} out of shape or range")
 
     # the same steps one by one, synchronized: prefill ms, decode ms a
     # step, finite logits, the same tokens
@@ -1420,34 +1434,77 @@ def llm_phase(dev, card: str) -> int:
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
         caches = api.pad_caches(caches, max_len)
-        for i in range(LLM_NEW):
+        for i in range(new_tokens):
             finite &= bool(torch.isfinite(logits).all().item())
             tok = torch.clamp(torch.argmax(logits[:, -1], -1)[:, None],
                               max=cfg.vocab_size - 1).to(torch.int32)
             toks.append(tok)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            logits, caches = decode(p, tok, caches, LLM_PROMPT + i)
+            logits, caches = decode(p, tok, caches, prompt + i)
             torch.cuda.synchronize()
             steps.append((time.perf_counter() - t0) * 1e3)
         finite &= bool(torch.isfinite(logits).all().item())
         del p, caches, logits
-    check(finite, "llm: a logit is not finite")
+    check(finite, f"{span}: a logit is not finite")
     check(torch.equal(torch.cat(toks, 1), out),
-          "llm: step-by-step tokens differ from generate's")
+          f"{span}: step-by-step tokens differ from generate's")
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        with torch.profiler.record_function("llm/generate"):
-            serve.generate(cfg, params, batch, max_new_tokens=LLM_NEW,
+        with torch.profiler.record_function(span):
+            serve.generate(cfg, params, batch, max_new_tokens=new_tokens,
                            max_len=max_len)
             torch.cuda.synchronize()
-    idle, busy_ms, window_s = _idle_share(prof, "llm/generate")
+    idle, busy_ms, window_s = _idle_share(prof, span)
     top = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                   for e in prof.key_averages()
                   if e.self_device_time_total > 0),
                  key=lambda t: -t[1])[:8]
+    return dict(out=out, max_len=max_len, wall=wall, launches=launches,
+                peak=peak, prefill_ms=prefill_ms, steps=steps, idle=idle,
+                busy_ms=busy_ms, window_s=window_s, top=top)
+
+
+def serve_numbers(r: dict) -> dict:
+    """The printed numbers of a ``serve_timed`` run."""
+    import statistics
+    return dict(
+        max_len=r["max_len"], wall_s=r["wall"],
+        tok_per_s=r["out"].numel() / r["wall"], prefill_ms=r["prefill_ms"],
+        decode_ms_per_step=statistics.median(r["steps"]),
+        decode_ms_min=min(r["steps"]), decode_ms_max=max(r["steps"]),
+        peak_memory_bytes=r["peak"], flash_attention_launches=r["launches"],
+        profiled_window_s=r["window_s"], device_busy_ms=r["busy_ms"],
+        idle_share=r["idle"],
+        top_device_ms=[[name[:60], ms, n] for name, ms, n in r["top"]])
+
+
+def llm_phase(dev, card: str) -> int:
+    """Main path 3: ``launch.serve.generate`` with Mistral-NeMo-12B at full
+    width (8 layers), prefill through the flash-attention kernel."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+
+    cfg = dataclasses.replace(get_config(LLM_ARCH), n_layers=LLM_LAYERS,
+                              attn_impl="pallas")
+    print(f"[llm] reduced: {json.dumps(LLM_REDUCED, ensure_ascii=False)}",
+          flush=True)
+    params = api.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                             device=dev)
+    n_params = api.count_params(params)
+    tokens = torch.randint(
+        0, cfg.vocab_size, (LLM_BATCH, LLM_PROMPT), dtype=torch.int32,
+        generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    r = serve_timed(cfg, params, {"tokens": tokens}, LLM_NEW,
+                    "llm/generate")
+    launches = r["launches"]
+    check(launches == cfg.n_layers,
+          f"llm: {launches} flash_attention launches, expected "
+          f"{cfg.n_layers}")
 
     bf16_impl, bf16_tf, bf16_std = llm_diffs(cfg, params, tokens)
     tol = BF16_LOGIT_TOL * bf16_std
@@ -1462,13 +1519,7 @@ def llm_phase(dev, card: str) -> int:
         heads=[cfg.n_heads, cfg.n_kv_heads, cfg.head_dim], d_ff=cfg.d_ff,
         vocab=cfg.vocab_size, compute_dtype=cfg.compute_dtype,
         batch=LLM_BATCH, prompt=LLM_PROMPT, new_tokens=LLM_NEW,
-        max_len=max_len, params=n_params,
-        wall_s=wall, tok_per_s=out.numel() / wall, prefill_ms=prefill_ms,
-        decode_ms_per_step=statistics.median(steps),
-        decode_ms_min=min(steps), decode_ms_max=max(steps),
-        peak_memory_bytes=peak, flash_attention_launches=launches,
-        profiled_window_s=window_s, device_busy_ms=busy_ms, idle_share=idle,
-        top_device_ms=[[name[:60], ms, n] for name, ms, n in top],
+        params=n_params, **serve_numbers(r),
         f32_pallas_vs_chunked=f32_impl, f32_teacher_forcing=f32_tf,
         f32_logits_std=f32_std, bf16_pallas_vs_chunked=bf16_impl,
         bf16_teacher_forcing=bf16_tf, bf16_logits_std=bf16_std,
@@ -1479,6 +1530,218 @@ def llm_phase(dev, card: str) -> int:
           f"llm bf16: pallas vs chunked {bf16_impl} > {tol}")
     check(bf16_tf <= tol, f"llm bf16: teacher forcing {bf16_tf} > {tol}")
     return launches
+
+
+MOE_BATCH, MOE_PROMPT, MOE_NEW = 4, 1024, 32
+DEEPSEEK_ARCH, DEEPSEEK_LAYERS = "deepseek-v2-lite-16b", 8
+GRANITE_ARCH = "granite-moe-1b-a400m"
+MOE_REDUCED = {
+    DEEPSEEK_ARCH: {"n_layers": "27 -> 8: the dense first layer + 7 MoE "
+                                "(15.71 B parameters ≈ 94 GB as f32 "
+                                "masters plus the bf16 compute copy; 8 "
+                                "layers: 4.594 B ≈ 18.4 GB + 8.8 GB)"},
+    GRANITE_ARCH: {},                              # all 24 layers
+}
+# the exactness checks at full width in f32: 2 layers, B 1 x 256
+MOE_EXACT_LAYERS, MOE_EXACT_SEQ = 2, 256
+# EP on the card: a 2 x 2 (data, model) mesh of 4 logical devices on one
+# card, B 2 x 32 tokens
+EP_MESH, EP_BATCH, EP_SEQ = (2, 2), 2, 32
+# bf16 compute, Granite's prefill logits through the kernel against the
+# chunked path: BF16_LOGIT_TOL of the logits' std, the [llm] rule (the
+# two paths round the attention output at other places, and 24 layers
+# add their rounding to the residual stream), compared drop-free
+# (capacity factor E/k): at the served 1.25, a one-ulp change in one
+# token's route can move another's choice over the capacity line, and
+# the last token, sorted last, is the first one dropped.
+
+
+def moe_exactness(dev) -> dict:
+    """DeepSeek-V2-Lite at full width in f32 (TF32 off, as ``main`` sets
+    it), 2 layers (the dense one and one MoE), capacity factor
+    ``n_experts / top_k`` (no choice dropped): the decode step against
+    the full forward (teacher forcing), ``moe_ffn_ep`` with no mesh
+    against ``moe_ffn_ref`` on the decode tokens' shape (B 4 x 1) at
+    the full MoE width, the absorbed ``mla_decode`` against
+    ``mla_train``'s last row, and ``moe_ffn_ep`` on a 2 x 2 mesh of 4
+    logical devices of the card against ``moe_ffn_ref`` (B 2 x 32), with
+    the bytes its two exchanges moved."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import dist
+    from repro_torch.configs import get_config
+    from repro_torch.models import api, mla, moe
+
+    base = get_config(DEEPSEEK_ARCH)
+    cfg = dataclasses.replace(
+        base, n_layers=MOE_EXACT_LAYERS, compute_dtype="float32",
+        moe_capacity_factor=base.n_experts / base.top_k)
+    params = api.init_params(torch.Generator(device=dev).manual_seed(0),
+                             cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (1, MOE_EXACT_SEQ + 1),
+                           dtype=torch.int32, generator=gen, device=dev)
+    s = MOE_EXACT_SEQ
+    out = {}
+    with torch.inference_mode():
+        p = api.prepare(params, cfg)
+        full = api.forward_logits(p, cfg, {"tokens": tokens})
+        _, caches = api.prefill_step(p, cfg, {"tokens": tokens[:, :s]})
+        dec, _ = api.decode_step(p, cfg, tokens[:, s:], api.pad_caches(
+            caches, s + 8), s)
+        out["teacher_forcing"] = (dec[:, 0] - full[:, s]).abs().max().item()
+        pm = _layer(p["moe_blocks"]["moe"], 0)
+        pa = _layer(p["moe_blocks"]["attn"], 0)
+        x = torch.randn(MOE_BATCH, 1, cfg.d_model, generator=gen,
+                        device=dev)
+        got = moe.moe_ffn_ep(pm, x, cfg)
+        want = moe.moe_ffn_ref(pm, x, cfg)
+        out["moe_ep_vs_ref"] = (got - want).abs().max().item()
+        xa = 0.5 * torch.randn(1, s + 1, cfg.d_model, generator=gen,
+                               device=dev)
+        pos = torch.arange(s + 1, device=dev)[None]
+        train = mla.mla_train(pa, xa, cfg, pos)
+        _, cache = mla.mla_prefill(pa, xa[:, :s], cfg, pos[:, :s])
+        cache = api.pad_caches(cache, s + 1)
+        absorbed, _ = mla.mla_decode(pa, xa[:, s:], cfg, cache, s)
+        out["mla_absorbed_vs_train"] = \
+            (absorbed[:, 0] - train[:, s]).abs().max().item()
+
+        devs = np.empty(math.prod(EP_MESH), dtype=object)
+        devs[:] = dist.logical_devices(devs.size, dev)
+        mesh = dist.Mesh(devs.reshape(EP_MESH), ("data", "model"))
+        xe = torch.randn(EP_BATCH, EP_SEQ, cfg.d_model, generator=gen,
+                         device=dev)
+        moe.moe_ffn_ep.exchanged_bytes = 0
+        with dist.use_mesh(mesh):
+            got = moe.moe_ffn_ep(pm, xe, cfg)
+        torch.cuda.synchronize()
+        out["ep_exchanged_bytes"] = moe.moe_ffn_ep.exchanged_bytes
+        out["ep_vs_ref"] = (got - moe.moe_ffn_ref(pm, xe, cfg)) \
+            .abs().max().item()
+        # each rank keeps its own chunk of the E/2 experts' buckets and
+        # sends the other, both ways: 2 groups x 2 ranks x 2 ways
+        n_l = EP_BATCH // EP_MESH[0] * EP_SEQ // EP_MESH[1]
+        cap = moe._capacity(cfg.moe_capacity_factor, n_l, cfg)
+        out["ep_expected_bytes"] = 8 * (cfg.n_experts // 2) * cap * \
+            cfg.d_model * 4
+        del p, pm, pa
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _layer(stacked, i):
+    """Layer ``i`` of a stacked parameter tree."""
+    if isinstance(stacked, dict):
+        return {k: _layer(v, i) for k, v in stacked.items()}
+    return stacked[i]
+
+
+def granite_diffs(cfg, params, tokens) -> tuple[float, float]:
+    """Max |difference| of Granite's prefill last-token logits through
+    the flash kernel against the plain ``chunked`` path, and the std of
+    the kernel's logits."""
+    import dataclasses
+    import torch
+    from repro_torch.models import api
+    chunked = dataclasses.replace(cfg, attn_impl="chunked")
+    with torch.inference_mode():
+        p = api.prepare(params, cfg)
+        got, _ = api.prefill_step(p, cfg, {"tokens": tokens})
+        want, _ = api.prefill_step(p, chunked, {"tokens": tokens})
+    return (got.float() - want.float()).abs().max().item(), \
+        got.float().std().item()
+
+
+def moe_phase(dev, card: str) -> int:
+    """Main path 5: ``launch.serve.generate`` with the MoE family at full
+    width, bf16 compute over f32 masters: DeepSeek-V2-Lite (MLA, 8 of 27
+    layers) and Granite-3.0-1B-A400M (GQA, all 24 layers, prefill
+    through the flash-attention kernel), B 4 x 1,024 tokens and 32
+    greedy steps each; then the f32 exactness and EP checks.  Returns
+    Granite's flash-attention launches."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+
+    print(f"[moe] reduced: {json.dumps(MOE_REDUCED, ensure_ascii=False)}",
+          flush=True)
+    runs = {}
+    for arch in (DEEPSEEK_ARCH, GRANITE_ARCH):
+        cfg = get_config(arch)
+        if arch == DEEPSEEK_ARCH:
+            cfg = dataclasses.replace(cfg, n_layers=DEEPSEEK_LAYERS)
+        else:
+            cfg = dataclasses.replace(cfg, attn_impl="pallas")
+        params = api.init_params(torch.Generator(device=dev).manual_seed(0),
+                                 cfg, device=dev)
+        tokens = torch.randint(
+            0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT), dtype=torch.int32,
+            generator=torch.Generator(device=dev).manual_seed(1),
+            device=dev)
+        r = serve_timed(cfg, params, {"tokens": tokens}, MOE_NEW,
+                        f"moe/{arch}/generate")
+        want = cfg.n_layers if cfg.attn_impl == "pallas" else 0
+        check(r["launches"] == want,
+              f"moe {arch}: {r['launches']} flash_attention launches, "
+              f"expected {want}")
+        row = dict(card=card, arch=arch, n_layers=cfg.n_layers,
+                   d_model=cfg.d_model,
+                   heads=[cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+                   experts=[cfg.n_experts, cfg.top_k, cfg.d_expert,
+                            cfg.n_shared_experts],
+                   capacity_factor=cfg.moe_capacity_factor, mla=cfg.mla,
+                   attn_impl=cfg.attn_impl, vocab=cfg.vocab_size,
+                   compute_dtype=cfg.compute_dtype, batch=MOE_BATCH,
+                   prompt=MOE_PROMPT, new_tokens=MOE_NEW,
+                   params=api.count_params(params), **serve_numbers(r))
+        if arch == GRANITE_ARCH:
+            free = dataclasses.replace(
+                cfg, moe_capacity_factor=cfg.n_experts / cfg.top_k)
+            diff, std = granite_diffs(free, params, tokens)
+            row.update(bf16_pallas_vs_chunked=diff, bf16_logits_std=std,
+                       bf16_tol=BF16_LOGIT_TOL * std)
+            del params
+            cfg32 = dataclasses.replace(cfg, n_layers=2,
+                                        compute_dtype="float32")
+            params32 = api.init_params(
+                torch.Generator(device=dev).manual_seed(0), cfg32,
+                device=dev)
+            row["f32_pallas_vs_chunked"], row["f32_logits_std"] = \
+                granite_diffs(cfg32, params32, tokens)
+            del params32
+        else:
+            del params
+        torch.cuda.empty_cache()
+        print("[moe] " + json.dumps(row), flush=True)
+        runs[arch] = row
+    exact = moe_exactness(dev)
+    print("[moe] " + json.dumps(dict(exactness=exact)), flush=True)
+    g = runs[GRANITE_ARCH]
+    check(g["f32_pallas_vs_chunked"] <= 1e-3,
+          f"moe granite f32: pallas vs chunked {g['f32_pallas_vs_chunked']}"
+          " > 1e-3")
+    check(g["bf16_pallas_vs_chunked"] <= g["bf16_tol"],
+          f"moe granite bf16: pallas vs chunked "
+          f"{g['bf16_pallas_vs_chunked']} > {g['bf16_tol']}")
+    check(exact["teacher_forcing"] <= 2e-3,
+          f"moe deepseek f32: teacher forcing {exact['teacher_forcing']} "
+          "> 2e-3")
+    check(exact["moe_ep_vs_ref"] <= 1e-4,
+          f"moe: moe_ffn_ep vs moe_ffn_ref {exact['moe_ep_vs_ref']} > 1e-4")
+    check(exact["mla_absorbed_vs_train"] <= 2e-3,
+          f"moe: absorbed mla_decode vs mla_train "
+          f"{exact['mla_absorbed_vs_train']} > 2e-3")
+    check(exact["ep_vs_ref"] <= 1e-4,
+          f"moe: EP on 4 logical devices vs moe_ffn_ref "
+          f"{exact['ep_vs_ref']} > 1e-4")
+    check(exact["ep_exchanged_bytes"] == exact["ep_expected_bytes"],
+          f"moe: EP exchanged {exact['ep_exchanged_bytes']} bytes, "
+          f"expected {exact['ep_expected_bytes']}")
+    return g["flash_attention_launches"]
 
 
 TRAIN_ARCH = "mistral-nemo-12b"
@@ -1833,10 +2096,13 @@ def main() -> int:
     launches["flash_decode"] = serve_phase(dev)
     launches["flash_attention"] = llm_phase(dev, card)
     torch.cuda.empty_cache()
+    moe_launches = moe_phase(dev, card)
+    torch.cuda.empty_cache()
     train_phase(dev, card)
     by_path = {"depman": depman_phase(dev, central),
                "sharded": sharded_phase(dev, central),
-               "fuzz": {"matmul_batched": fuzz_phase(dev)}}
+               "fuzz": {"matmul_batched": fuzz_phase(dev)},
+               "moe": {"flash_attention": moe_launches}}
     sim_phase(dev, central)
     obs_phase(dev)
     for row in kernels:

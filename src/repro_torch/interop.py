@@ -124,8 +124,9 @@ def params_from_reference(tree: Mapping, cfg,
     """The port's ``Decoder`` for ``cfg`` on ``device`` holding the
     reference's parameters, given as its pytree of nested dicts of numpy
     arrays.  Loads leaf by leaf under the pytree path joined by dots
-    (``blocks.attn.wq.w``); raises on a missing, extra or misshapen
-    leaf."""
+    (``blocks.attn.wq.w``; ``dense_blocks.ffn.up.w`` or
+    ``moe_blocks.moe.gate`` for the MoE family); raises on a missing,
+    extra or misshapen leaf."""
     decoder = Decoder(cfg, device=device)
     want = decoder.state_dict()
     got = _flatten(tree)

@@ -1,5 +1,7 @@
 """Model zoo, ported family by family: so far the dense decoder-only
-family (Mistral-NeMo-12B, Qwen1.5-4B, Nemotron-4-15B, Command-R-35B).
+family (Mistral-NeMo-12B, Qwen1.5-4B, Nemotron-4-15B, Command-R-35B)
+and the MoE family (DeepSeek-V2-Lite with MLA attention,
+Granite-3.0-1B-A400M; ``moe.py``, ``mla.py``).
 
 Parameters live in an ``nn.Module`` tree (``transformer.Decoder``) whose
 block weights are stacked on a leading layer axis; the functions take

@@ -17,13 +17,13 @@ from .layers import cross_entropy_loss, logits_out
 
 __all__ = ["init_params", "count_params", "prepare", "loss_fn",
            "forward_logits", "prefill_step", "decode_step", "init_cache",
-           "pad_caches"]
+           "transformer_cache_tree", "pad_caches"]
 
 
 def init_params(generator: torch.Generator, cfg, *, device="cuda"):
     """A ``transformer.Decoder`` on ``device`` with weights drawn from
     ``generator`` (on the same kind of device) in the reference's
-    distribution.  Families other than ``dense`` raise
+    distribution.  Families other than ``dense`` and ``moe`` raise
     ``NotImplementedError``."""
     return transformer.init_decoder(generator, cfg, device=device)
 
@@ -32,21 +32,27 @@ def count_params(params) -> int:
     return sum(p.numel() for p in params.parameters())
 
 
+STACKS = ("blocks", "dense_blocks", "moe_blocks")
+
+
 def prepare(params, cfg) -> dict:
     """The parameter tree cast for compute, as the reference casts it at
-    every forward: the stacked block leaves of rank >= 2 (weights, and
-    the per-layer norm scales and biases, rank 2 once stacked) to
-    ``cfg.compute_dtype`` (``_prep_stack``), and the output projection
-    (``lm_head``, or the tied embedding table transposed) as
-    ``logits_out`` casts it.  The embedding table and the final norm
-    stay f32.  A no-op copy-free tree in f32 compute."""
+    every forward: the leaves of rank >= 2 of every stacked segment
+    (``blocks``, ``dense_blocks``, ``moe_blocks``: weights, the router
+    and the experts, and the per-layer norm scales and biases, rank 2
+    once stacked) to ``cfg.compute_dtype`` (``_prep_stack``), and the
+    output projection (``lm_head``, or the tied embedding table
+    transposed) as ``logits_out`` casts it.  The embedding table and the
+    final norm stay f32.  A no-op copy-free tree in f32 compute."""
     if isinstance(params, dict):
         return params
     cd = transformer._cdtype(cfg)
     p = transformer.tree(params)
-    p["blocks"] = transformer.tree_map(
-        lambda a: a.to(cd) if a.ndim >= 2 and a.is_floating_point() else a,
-        p["blocks"])
+    for name in STACKS:
+        if name in p:
+            p[name] = transformer.tree_map(
+                lambda a: a.to(cd) if a.ndim >= 2 and a.is_floating_point()
+                else a, p[name])
     head = p["embed"]["table"].T if cfg.tie_embeddings else p["lm_head"]["w"]
     p["lm_head"] = {"w": head.to(cd)}
     return p
@@ -113,12 +119,37 @@ def decode_step(params, cfg, token, caches, pos):
 # ---------------------------------------------------------------------------
 def init_cache(cfg, batch: int, seq_len: int, dtype=None, *, device="cuda"):
     """Zeroed caches of the decode shape (filled by prefill in real
-    serving): {"k", "v"} of (n_layers, B, n_kv_heads, S, head_dim)."""
-    transformer.require_dense(cfg)
+    serving): for the dense family {"k", "v"} of (n_layers, B,
+    n_kv_heads, S, head_dim); for the MoE family one such tree per
+    segment, {"dense", "moe"} ({"moe"} alone with no leading dense
+    layer), each {"c_kv": (n, B, S, kv_lora_rank), "k_rope": (n, B, S,
+    rope_head_dim)} under MLA."""
+    transformer.require_ported(cfg)
     dt = dtype or transformer._cdtype(cfg)
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, seq_len, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device)}
+    b, s = batch, seq_len
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    def attn_cache(n_layers):
+        shape = (n_layers, b, cfg.n_kv_heads, s, cfg.head_dim)
+        return {"k": zeros(*shape), "v": zeros(*shape)}
+
+    def mla_cache(n):
+        return {"c_kv": zeros(n, b, s, cfg.kv_lora_rank),
+                "k_rope": zeros(n, b, s, cfg.rope_head_dim)}
+
+    if cfg.family == "dense":
+        return transformer_cache_tree(attn_cache(cfg.n_layers))
+    seg_cache = mla_cache if cfg.mla else attn_cache
+    out = {"moe": seg_cache(cfg.n_layers - cfg.first_dense)}
+    if cfg.first_dense:
+        out["dense"] = seg_cache(cfg.first_dense)
+    return out
+
+
+def transformer_cache_tree(c):
+    return c
 
 
 def pad_caches(caches, target_len: int):

@@ -96,14 +96,17 @@ class Embedding(nn.Module):
 
 def draw(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Draw every parameter of ``module`` from ``generator``, submodule by
-    submodule in registration order; returns ``module``."""
+    submodule in registration order (each container that holds
+    parameters of its own draws them in ``reset_parameters``); returns
+    ``module``."""
     device = next(module.parameters()).device
     if generator.device.type != device.type:
         raise ValueError(f"generator on {generator.device}, parameters on "
                          f"{device}")
     for m in module.modules():
-        if isinstance(m, (Linear, Norm, Embedding)):
-            m.reset_parameters(generator)
+        reset = getattr(m, "reset_parameters", None)
+        if reset is not None:
+            reset(generator)
     return module
 
 

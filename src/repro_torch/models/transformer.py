@@ -1,13 +1,15 @@
-"""Architecture assembly for the dense decoder-only family (the JAX
-package's ``models/transformer.py``).
+"""Architecture assembly for the dense and MoE decoder-only families
+(the JAX package's ``models/transformer.py``).
 
 The block parameters are stacked on a leading layer axis, as the
 reference's ``_stack_init`` stacks them, and the reference's ``lax.scan``
 over that axis is a Python loop over the layers, each under
 :func:`_remat` in training (``cfg.remat``, ``cfg.remat_policy``), the
-counterpart of the reference's ``jax.checkpoint``.  The other families
-(``moe``, ``vlm``, ``hybrid``, ``ssm``, ``audio``) raise
-``NotImplementedError`` naming their ROADMAP item.
+counterpart of the reference's ``jax.checkpoint``.  The MoE family runs
+two segments, ``dense_blocks`` (the leading dense layers, deepseek's
+first) and ``moe_blocks``, each block with MLA attention when
+``cfg.mla`` is set.  The other families (``vlm``, ``hybrid``, ``ssm``,
+``audio``) raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -21,10 +23,12 @@ from torch.utils.checkpoint import (checkpoint,
                                     noop_context_fn)
 
 from . import attention as attn_mod
+from . import mla as mla_mod
+from . import moe as moe_mod
 from .layers import FFN, Embedding, Linear, Norm, draw, embed, ffn, norm
 
+PORTED = ("dense", "moe")
 _NOT_PORTED = {
-    "moe": "ROADMAP queue 1 item 12 (the MoE family and its MLA attention)",
     "vlm": "ROADMAP queue 1 item 12 (the VLM family)",
     "hybrid": "ROADMAP queue 1 item 12 (the hybrid Mamba2 family)",
     "ssm": "ROADMAP queue 1 item 12 (the xLSTM family)",
@@ -32,9 +36,9 @@ _NOT_PORTED = {
 }
 
 
-def require_dense(cfg) -> None:
+def require_ported(cfg) -> None:
     """Raise ``NotImplementedError`` for a family the port lacks."""
-    if cfg.family != "dense":
+    if cfg.family not in PORTED:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet; see "
             f"{_NOT_PORTED.get(cfg.family, 'ROADMAP queue 1 item 12')}")
@@ -47,51 +51,65 @@ def _cdtype(cfg) -> torch.dtype:
 # ---------------------------------------------------------------------------
 # the standard pre-norm attention block
 class Block(nn.Module):
-    """``init_block`` for the dense family: ln1, attn, ln2 (absent for a
-    parallel block), ffn; stacked on a leading axis of ``layers``."""
+    """``init_block``: ln1, attn (``MLA`` when ``cfg.mla`` is set), ln2
+    (absent for a parallel block), and ``moe`` for a MoE layer or else
+    ``ffn`` (of width ``d_ff``, ``cfg.d_ff`` by default); stacked on a
+    leading axis of ``layers``."""
 
-    def __init__(self, cfg, *, layers: int | None = None, device=None):
+    def __init__(self, cfg, *, moe_layer: bool = False,
+                 d_ff: int | None = None, layers: int | None = None,
+                 device=None):
         super().__init__()
         kw = dict(layers=layers, device=device)
         self.ln1 = Norm(cfg.d_model, cfg.norm, **kw)
-        self.attn = attn_mod.Attention(cfg, **kw)
+        self.attn = mla_mod.MLA(cfg, **kw) if cfg.mla \
+            else attn_mod.Attention(cfg, **kw)
         if not cfg.parallel_block:
             self.ln2 = Norm(cfg.d_model, cfg.norm, **kw)
-        self.ffn = FFN(cfg.d_model, cfg.d_ff, cfg.act, **kw)
+        if moe_layer:
+            self.moe = moe_mod.MoE(cfg, **kw)
+        else:
+            self.ffn = FFN(cfg.d_model, d_ff or cfg.d_ff, cfg.act, **kw)
 
 
 def init_block(generator, cfg, *, moe_layer: bool = False,
-               layers: int | None = None, device=None) -> Block:
-    if moe_layer or cfg.mla:
-        raise NotImplementedError(
-            f"MoE and MLA blocks are not ported yet; see {_NOT_PORTED['moe']}")
-    return draw(Block(cfg, layers=layers, device=device), generator)
+               d_ff: int | None = None, layers: int | None = None,
+               device=None) -> Block:
+    return draw(Block(cfg, moe_layer=moe_layer, d_ff=d_ff, layers=layers,
+                      device=device), generator)
+
+
+def _block_mix(p, h, cfg, positions, mode, cache, pos):
+    """The attention (or MLA) sub-layer in the given mode."""
+    if cfg.mla:
+        if mode == "train":
+            return mla_mod.mla_train(p["attn"], h, cfg, positions), None
+        if mode == "prefill":
+            return mla_mod.mla_prefill(p["attn"], h, cfg, positions)
+        return mla_mod.mla_decode(p["attn"], h, cfg, cache, pos)
+    if mode == "train":
+        return attn_mod.attention_train(p["attn"], h, cfg, positions), None
+    if mode == "prefill":
+        return attn_mod.attention_prefill(p["attn"], h, cfg, positions)
+    return attn_mod.attention_decode(p["attn"], h, cfg, cache, pos)
 
 
 def block_apply(p, x, cfg, positions, *, moe_layer: bool = False,
                 mode: str = "train", cache=None, pos=None):
     """Returns (x, new_cache)."""
-    if moe_layer:
-        raise NotImplementedError(
-            f"MoE blocks are not ported yet; see {_NOT_PORTED['moe']}")
-
-    def mix(h):
-        if mode == "train":
-            return attn_mod.attention_train(p["attn"], h, cfg, positions), \
-                None
-        if mode == "prefill":
-            return attn_mod.attention_prefill(p["attn"], h, cfg, positions)
-        return attn_mod.attention_decode(p["attn"], h, cfg, cache, pos)
+    def mlp(h):
+        return moe_mod.moe_ffn(p["moe"], h, cfg) if moe_layer \
+            else ffn(p["ffn"], h, cfg.act)
 
     if cfg.parallel_block:                 # command-r style
         h = norm(p["ln1"], x, cfg.norm, cfg.norm_eps)
-        a, new_cache = mix(h)
-        return x + a + ffn(p["ffn"], h, cfg.act), new_cache
+        a, new_cache = _block_mix(p, h, cfg, positions, mode, cache, pos)
+        return x + a + mlp(h), new_cache
     h = norm(p["ln1"], x, cfg.norm, cfg.norm_eps)
-    a, new_cache = mix(h)
+    a, new_cache = _block_mix(p, h, cfg, positions, mode, cache, pos)
     x = x + a
     h = norm(p["ln2"], x, cfg.norm, cfg.norm_eps)
-    return x + ffn(p["ffn"], h, cfg.act), new_cache
+    return x + mlp(h), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -116,20 +134,31 @@ def segments(cfg) -> list[tuple[str, int]]:
 
 # ---------------------------------------------------------------------------
 class Decoder(nn.Module):
-    """The parameter tree of ``init_decoder`` for the dense family:
-    ``embed``, ``final_norm``, ``lm_head`` (absent when the embeddings are
-    tied) and ``blocks``, stacked over ``n_layers``.  Its ``state_dict``
-    keys are the reference's pytree paths joined by dots."""
+    """The parameter tree of ``init_decoder``: ``embed``, ``final_norm``,
+    ``lm_head`` (absent when the embeddings are tied) and, for the dense
+    family, ``blocks`` stacked over ``n_layers``; for the MoE family,
+    ``dense_blocks`` stacked over ``first_dense`` (FFN width
+    ``first_dense_ff``; absent when there are none) and ``moe_blocks``
+    over the rest.  Its ``state_dict`` keys are the reference's pytree
+    paths joined by dots."""
 
     def __init__(self, cfg, *, device=None):
         super().__init__()
-        require_dense(cfg)
+        require_ported(cfg)
         self.embed = Embedding(cfg.padded_vocab, cfg.d_model, device=device)
         self.final_norm = Norm(cfg.d_model, cfg.norm, device=device)
         if not cfg.tie_embeddings:
             self.lm_head = Linear(cfg.d_model, cfg.padded_vocab,
                                   device=device)
-        self.blocks = Block(cfg, layers=cfg.n_layers, device=device)
+        if cfg.family == "dense":
+            self.blocks = Block(cfg, layers=cfg.n_layers, device=device)
+            return
+        if cfg.first_dense:
+            self.dense_blocks = Block(cfg, d_ff=cfg.first_dense_ff,
+                                      layers=cfg.first_dense, device=device)
+        self.moe_blocks = Block(cfg, moe_layer=True,
+                                layers=cfg.n_layers - cfg.first_dense,
+                                device=device)
 
 
 def init_decoder(generator, cfg, *, device=None) -> Decoder:
@@ -187,15 +216,28 @@ def forward(p, cfg, tokens, *, mode: str = "train", caches=None, pos=None):
     * train:   hidden (B, S, d), caches None
     * prefill: hidden (B, S, d), fresh caches
     * decode:  hidden (B, 1, d), caches updated in place  (pos: int index)
+
+    The MoE family's caches are ``{"dense", "moe"}``, one per segment, or
+    ``{"moe"}`` alone when it has no leading dense layer.
     """
-    require_dense(cfg)
+    require_ported(cfg)
     x = _embed_tokens(p, cfg, tokens)
     positions = _positions(tokens.shape, device=tokens.device) \
         if mode != "decode" else None
-    x, caches = _run_attn_stack(p["blocks"], x, cfg, positions, mode, caches,
-                                pos, moe_layer=False)
+    if cfg.family == "dense":
+        x, out_caches = _run_attn_stack(p["blocks"], x, cfg, positions,
+                                        mode, caches, pos, moe_layer=False)
+    else:
+        out_caches = {}
+        if cfg.first_dense:
+            x, out_caches["dense"] = _run_attn_stack(
+                p["dense_blocks"], x, cfg, positions, mode,
+                caches and caches.get("dense"), pos, moe_layer=False)
+        x, out_caches["moe"] = _run_attn_stack(
+            p["moe_blocks"], x, cfg, positions, mode,
+            caches and caches.get("moe"), pos, moe_layer=True)
     x = norm(p["final_norm"], x, cfg.norm, cfg.norm_eps)
-    return x, caches
+    return x, out_caches
 
 
 # the non-batched matrix products (``x @ w``: aten.mm, or aten.addmm with
@@ -243,16 +285,20 @@ def _run_attn_stack(stacked, x, cfg, positions, mode, caches, pos, *,
             x = f(x, p_l)
         return x, None
     if mode == "prefill":
-        ks, vs = [], []
+        # whatever cache leaves the block returns (k/v, or c_kv/k_rope),
+        # stacked over the layers
+        collected: dict[str, list] = {}
         for p_l in layers:
             x, c = block_apply(p_l, x, cfg, positions, moe_layer=moe_layer,
                                mode="prefill")
-            ks.append(c["k"])
-            vs.append(c["v"])
-        return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
+            for name, leaf in c.items():
+                collected.setdefault(name, []).append(leaf)
+        return x, {name: torch.stack(leaves)
+                   for name, leaves in collected.items()}
     for i, p_l in enumerate(layers):
         x, _ = block_apply(p_l, x, cfg, None, moe_layer=moe_layer,
                            mode="decode",
-                           cache={"k": caches["k"][i], "v": caches["v"][i]},
+                           cache={name: leaf[i]
+                                  for name, leaf in caches.items()},
                            pos=pos)
     return x, caches

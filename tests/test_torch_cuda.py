@@ -18,7 +18,9 @@ the app tests drive the wave backend end to end and check that the
 registered kernels launched (and, on the sharded executor, that they do
 not under a mesh, where every group falls back as ``sharded_mesh``), the serving tests drive the host executor
 on the card, and the LLM test counts one flash-attention launch per layer
-in one ``generate``.  The fuzz tests replay a few seeds of the
+in one ``generate``; the MoE tests run a reduced DeepSeek-V2-Lite and
+Granite-3.0-1B-A400M ``generate`` on the card and hold their logits
+against the CPU's plain path in bf16.  The fuzz tests replay a few seeds of the
 differential corpus on the card under the sharded dependence managers
 (both pumps), with ``_gemm``'s groups on the GEMM kernel at 8x8x8.
 The sharded-executor tests run the apps with no mesh, on
@@ -41,7 +43,8 @@ from repro_torch.kernels.flash_decode import kernel as fd_kernel
 from repro_torch.kernels.jacobi import kernel as jac_kernel
 from repro_torch.kernels.matmul import kernel as mm_kernel
 from repro_torch.launch import serve as llm_serve
-from repro_torch.models import api
+from repro_torch.models import api, moe
+from test_torch_moe_routes import RouteReplay
 
 
 @pytest.fixture
@@ -486,6 +489,60 @@ def test_cuda_generate_launches_once_per_layer(cuda_device, compute_dtype):
     assert tuple(out.shape) == (2, 4) and out.device.type == "cuda"
     if compute_dtype == "float32":
         assert torch.equal(out.cpu(), on_cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,impl", [("deepseek-v2-lite-16b", "chunked"),
+                                       ("granite-moe-1b-a400m", "pallas")])
+def test_cuda_moe_generate_matches_the_cpu_run(cuda_device, arch, impl,
+                                               monkeypatch):
+    """A reduced MoE model in bf16 compute: ``generate`` on the card
+    (Granite's prefill launches the flash kernel once per layer, decode
+    never; DeepSeek's MLA stays chunked and launches nothing), then the
+    prefill and decode logits of the same tokens held against the CPU's
+    plain path within 5e-2, the CPU run's expert choices replayed on the
+    card (``tests/test_torch_moe_routes.py``: a flip is allowed only at a near-tie
+    of two gates)."""
+    cfg = configs.get_config(arch).reduced(attn_impl=impl,
+                                           compute_dtype="bfloat16")
+    params = api.init_params(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(1))
+    kw = dict(max_new_tokens=4, max_len=64 + 4 + 8)
+    on_cpu = llm_serve.generate(cfg, params, {"tokens": tokens}, **kw)
+
+    def steps(p, device):
+        """Prefill logits and the decode logits of the CPU's tokens."""
+        with torch.inference_mode():
+            logits, caches = api.prefill_step(
+                p, cfg, {"tokens": tokens.to(device)})
+            got = [logits.float().cpu()]
+            caches = api.pad_caches(caches, kw["max_len"])
+            for i in range(on_cpu.shape[1]):
+                logits, caches = api.decode_step(
+                    p, cfg, on_cpu[:, i:i + 1].to(device), caches, 64 + i)
+                got.append(logits.float().cpu())
+        return got
+
+    routes, inner = RouteReplay(exact=False), moe._router
+    monkeypatch.setattr(moe, "_router", routes.recording(inner))
+    want = steps(params, "cpu")
+    monkeypatch.setattr(moe, "_router", inner)
+    params.to(cuda_device)                          # in place
+    fa_kernel.flash_attention.launches = 0
+    out = llm_serve.generate(cfg, params,
+                             {"tokens": tokens.to(cuda_device)}, **kw)
+    torch.cuda.synchronize()
+    assert fa_kernel.flash_attention.launches == \
+        (cfg.n_layers if impl == "pallas" else 0)
+    assert tuple(out.shape) == (2, 4) and out.device.type == "cuda"
+    monkeypatch.setattr(moe, "_router", routes.replaying(inner))
+    got = steps(params, cuda_device)
+    routes.done()
+    for i, (g, w) in enumerate(zip(got, want)):
+        torch.testing.assert_close(g, w, rtol=5e-2, atol=5e-2,
+                                   msg=f"{arch} step {i}")
 
 
 @pytest.mark.cuda

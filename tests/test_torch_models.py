@@ -33,7 +33,8 @@ from repro_torch.launch import serve
 from repro_torch.models import api, layers, rope, transformer
 
 DENSE = ["mistral-nemo-12b", "qwen1.5-4b", "nemotron-4-15b", "command-r-35b"]
-NOT_DENSE = [a for a in configs.ARCH_IDS if a not in DENSE]
+MOE = ["deepseek-v2-lite-16b", "granite-moe-1b-a400m"]     # test_torch_moe
+NOT_PORTED = [a for a in configs.ARCH_IDS if a not in DENSE + MOE]
 B, S = 2, 16
 
 
@@ -382,8 +383,18 @@ def test_block_and_attention_inits_have_the_reference_shapes():
         want = {jax.tree_util.keystr(k): v.shape for k, v in
                 jax.tree_util.tree_leaves_with_path(ref_tree)}
         assert got == want
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.init_block(gen, cfg, moe_layer=True, device="cpu")
+    # a MoE layer (ported since): the block takes the MoE FFN in place of
+    # the FFN, as the reference's does
+    moe_cfg = configs.get_config("granite-moe-1b-a400m").reduced()
+    block = transformer.init_block(gen, moe_cfg, moe_layer=True,
+                                   device="cpu")
+    ref_block = ref_transformer.init_block(
+        jax.random.PRNGKey(0),
+        ref_configs.get_config("granite-moe-1b-a400m").reduced(),
+        moe_layer=True)
+    assert not hasattr(block, "ffn")
+    assert jax.tree_util.tree_map(np.shape, _numpy_tree(block)) == \
+        jax.tree_util.tree_map(np.shape, ref_block)
 
 
 def _numpy_tree(module):
@@ -452,7 +463,7 @@ def test_decode_writes_the_cache_in_place_clamped():
     _close(logits, ref_logits, 1e-4, "clamped decode")
 
 
-@pytest.mark.parametrize("arch", NOT_DENSE)
+@pytest.mark.parametrize("arch", NOT_PORTED)
 def test_other_families_are_not_ported_yet(arch):
     cfg = configs.get_config(arch).reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -461,8 +472,6 @@ def test_other_families_are_not_ported_yet(arch):
         api.init_cache(cfg, 1, 8, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         transformer.forward({}, cfg, torch.zeros(1, 4, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.block_apply({}, None, cfg, None, moe_layer=True)
 
 
 def test_cpu_model_path_runs_the_plain_kernel_without_counting():

@@ -2,9 +2,11 @@
 
 Both packages run the same weights (the reference's init, carried across
 by ``interop.params_from_reference``) on the same numpy-drawn tokens, at
-each dense architecture's ``reduced()`` size cut to 2 layers, sequence
-64, f32 compute, the attention in 16-query, 32-key chunks (so the
-chunked path runs several blocks under its checkpoints).  Tolerances,
+each dense architecture's ``reduced()`` size (and, for the loss and its
+gradients, each MoE architecture's: drop-free routing, deepseek's MLA
+and leading dense layer) cut to 2 layers, sequence 64, f32 compute, the
+attention in 16-query, 32-key chunks (so the chunked path runs several
+blocks under its checkpoints).  Tolerances,
 each with its reason:
 
 * the loss: 1e-5 relative (the frameworks sum the softmax, the products
@@ -57,6 +59,7 @@ from repro_torch.models.transformer import tree, tree_map
 from repro_torch.optim import adamw_init
 
 DENSE = ["mistral-nemo-12b", "qwen1.5-4b", "nemotron-4-15b", "command-r-35b"]
+MOE = ["deepseek-v2-lite-16b", "granite-moe-1b-a400m"]
 B, S = 2, 64
 SMALL = dict(n_layers=2, attn_q_chunk=16, attn_k_chunk=32)
 STEP_KW = dict(peak_lr=1e-2, warmup=1, total_steps=10)
@@ -101,19 +104,27 @@ def _port_loss_and_grads(cfg, weights, tokens):
     return loss.item(), _grads(params)
 
 
+def _grad_fn(ref_cfg):
+    return jax.jit(jax.value_and_grad(lambda p, t: ref_api.loss_fn(
+        p, ref_cfg, {"tokens": t})))
+
+
 @functools.cache
 def _reference(arch):
     """The reference's weights, its loss and gradients on token batch 0,
-    its gradients on batch 1 (what train step 1 sees), and three of its
-    jitted train steps (batches 0, 1, 0)."""
+    and, for a dense architecture, its gradients on batch 1 (what train
+    step 1 sees) and three of its jitted train steps (batches 0, 1, 0)."""
     _, ref_cfg = _cfgs(arch)
     weights = jax.tree_util.tree_map(
         np.asarray, ref_api.init_params(jax.random.PRNGKey(0), ref_cfg))
     toks = [_tokens(ref_cfg, 1), _tokens(ref_cfg, 2)]
     jp = jax.tree_util.tree_map(jnp.asarray, weights)
-    grad_fn = jax.jit(jax.value_and_grad(lambda p, t: ref_api.loss_fn(
-        p, ref_cfg, {"tokens": t})))
+    grad_fn = _grad_fn(ref_cfg)
     loss, grads = grad_fn(jp, jnp.asarray(toks[0]))
+    out = dict(weights=weights, tokens=toks, loss=float(loss),
+               grads=_flat(jax.tree_util.tree_map(np.asarray, grads)))
+    if arch in MOE:
+        return out
     _, grads1 = grad_fn(jp, jnp.asarray(toks[1]))
     step = jax.jit(ref_train.build_train_step(ref_cfg, **STEP_KW))
     p, opt, metrics = jp, ref_adamw_init(jp), []
@@ -121,16 +132,14 @@ def _reference(arch):
         p, opt, m = step(p, opt, {"tokens": jnp.asarray(toks[k % 2])},
                          jnp.int32(k))
         metrics.append({n: float(v) for n, v in m.items()})
-    return dict(weights=weights, tokens=toks, loss=float(loss),
-                grads=_flat(jax.tree_util.tree_map(np.asarray, grads)),
+    return dict(out, metrics=metrics,
                 grads1=_flat(jax.tree_util.tree_map(np.asarray, grads1)),
-                stepped=_flat(jax.tree_util.tree_map(np.asarray, p)),
-                metrics=metrics)
+                stepped=_flat(jax.tree_util.tree_map(np.asarray, p)))
 
 
 # ---------------------------------------------------------------------------
 # loss_fn and its gradients
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_loss_fn_matches_reference(arch):
     ref = _reference(arch)
     cfg, _ = _cfgs(arch)
@@ -138,7 +147,7 @@ def test_loss_fn_matches_reference(arch):
     np.testing.assert_allclose(loss, ref["loss"], rtol=1e-5)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_grads_match_reference(arch):
     ref = _reference(arch)
     cfg, _ = _cfgs(arch)
