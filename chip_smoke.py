@@ -34,8 +34,9 @@ Phases, each of which must pass (any failure exits non-zero):
    6, ragged Sq and Skv and head dims 32, 64 and 128, then at the prefill
    path's shape (Mistral-NeMo-12B's
    GQA width, B 4 x 1,024 tokens, bf16, causal), which is timed, as are
-   B 1 x 8,192 tokens and Granite-3.0-1B-A400M's prefill (B 4, Hq 16,
-   Hkv 8, 1,024 tokens, head dim 64).  ``bound_ms`` is the least time
+   B 1 x 8,192 tokens, Granite-3.0-1B-A400M's prefill (B 4, Hq 16,
+   Hkv 8, 1,024 tokens, head dim 64) and Qwen2-VL-72B's (B 4, Hq 64,
+   Hkv 8, 1,024 tokens, head dim 128: group 8, 8 positions a block).  ``bound_ms`` is the least time
    the card could take: the bytes the function must move over 3.35
    TB/s or its operations over the peak for their type, 67 TFLOP/s FP32
    or 989
@@ -170,10 +171,37 @@ Phases, each of which must pass (any failure exits non-zero):
    mesh of 4 logical devices of the card (B 2 x 32) against
    ``moe_ffn_ref`` within 1e-4, its exchanges moving exactly the bytes
    of the chunks that change device.  Prints what phase 6 prints.
+15. VLM (main path 6, run right after phase 14, whose memory it frees):
+   ``launch.serve.generate`` with Qwen2-VL-72B at full width (d 8,192,
+   Hq 64 / Hkv 8 / D 128, d_ff 29,568, ``qkv_bias``, M-RoPE (16, 24,
+   24) at theta 1e6), cut to 8 of its 80 layers (``VLM_REDUCED``,
+   printed on the first ``[vlm]`` line), weights from seed 0, bf16
+   compute over f32 masters, ``attn_impl="pallas"``: B 4 prompts of
+   1,024 tokens with a seeded normal ``vision_embeds`` stub (4, 256,
+   8,192) spliced over the first 256 positions, 32 greedy steps, timed
+   as phase 6 times them; the flash-attention counter zeroed just before
+   and read just after one ``generate``, one launch per layer (group
+   8).  Checks: phase 6's, with the stub in every forward (kernel
+   against chunked and teacher forcing in bf16 within
+   ``BF16_LOGIT_TOL`` of the logits' std, and at 2 layers in f32 within
+   1e-3 and 2e-3); another stub changes the last-token logits; M-RoPE
+   with its three streams equal is RoPE exactly at the published
+   sections.
+16. Pipe: ``core.pipeline.pipeline_step`` on 4 logical devices of the
+   card (a ``Mesh`` with axis ``"stage"``), each stage one f32
+   Mistral-NeMo-12B block at full width through ``block_apply`` in
+   train mode (chunked attention: the flash kernel has no backward), M 8
+   microbatches of 1,024 tokens, the B bodies through
+   ``torch.autograd.grad``.  Checks: the timetable
+   ``derive_pipeline_schedule(4, 8)`` has 22 clocks and the bodies ran
+   in its order; 48 hops moved 1,006,632,960 bytes; each stage's weight
+   gradient within 1e-4 of each leaf's largest of autograd over the four
+   blocks in sequence.  Prints the step's wall, the sequential wall and
+   the bubble share.  No kernel of ``csrc/`` runs here.
 
 Then one JSON line of kernel results (each row's ``launches`` from phase
-4, 5 or 6, and in ``launches_by_path`` those of phases 7, 8, 9 and 14),
-the card line again, and last ``{"ok": true, "device": {...}}``.
+4, 5 or 6, and in ``launches_by_path`` those of phases 7, 8, 9, 14 and
+15), the card line again, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -488,6 +516,8 @@ def kernel_phase(dev) -> list[dict]:
         wide=fa_case(1, 32, 8, 8192, 8192, 128, torch.bfloat16),
         # Granite-3.0-1B-A400M's prefill (the MoE phase): head dim 64, G 2
         granite=fa_case(4, 16, 8, 1024, 1024, 64, torch.bfloat16),
+        # Qwen2-VL-72B's prefill (the VLM phase): head dim 128, G 8
+        qwen2_vl=fa_case(4, 64, 8, 1024, 1024, 128, torch.bfloat16),
         **prefill_case))
 
     results = []
@@ -552,7 +582,7 @@ def kernel_phase(dev) -> list[dict]:
 
 
 # a kernel row's other shapes and dtypes, each timed beside the row's own
-EXTRA_CASES = ("wide", "bf16", "bf16_wide", "granite")
+EXTRA_CASES = ("wide", "bf16", "bf16_wide", "granite", "qwen2_vl")
 
 
 def parity_of_black_scholes(dev, gen) -> None:
@@ -1364,29 +1394,31 @@ LLM_BATCH, LLM_PROMPT, LLM_NEW = 4, 1024, 32
 BF16_LOGIT_TOL = 0.25          # times the std of the prefill logits
 
 
-def llm_diffs(cfg, params, tokens) -> tuple[float, float, float]:
+def llm_diffs(cfg, params, batch) -> tuple[float, float, float]:
     """Max |difference| of (the kernel path's prefill last-token logits
     against the plain ``chunked`` path's; the decode step at position S
     after the kernel's prefill against the full forward over S + 1
-    tokens, teacher forcing), and the std of the prefill logits.  The
-    full forward runs the chunked path: S + 1 = 1,025 tokens do not split
-    into the kernel's 256-token blocks (the reference raises there too)."""
+    tokens, teacher forcing, with the batch's ``vision_embeds`` in
+    both), and the std of the prefill logits.  The full forward runs the
+    chunked path: S + 1 = 1,025 tokens do not split into the kernel's
+    256-token blocks (the reference raises there too)."""
     import dataclasses
     import torch
     from repro_torch.models import api
     chunked = dataclasses.replace(cfg, attn_impl="chunked")
+    tokens = batch["tokens"]
     s = tokens.shape[1]
     with torch.inference_mode():
         p = api.prepare(params, cfg)
-        got, caches = api.prefill_step(p, cfg, {"tokens": tokens})
-        want, _ = api.prefill_step(p, chunked, {"tokens": tokens})
+        got, caches = api.prefill_step(p, cfg, batch)
+        want, _ = api.prefill_step(p, chunked, batch)
         d_impl = (got.float() - want.float()).abs().max().item()
         std = got.float().std().item()
         nxt = got[:, -1].argmax(-1, keepdim=True).to(torch.int32)
         dec, _ = api.decode_step(p, cfg, nxt, api.pad_caches(caches, s + 8),
                                  s)
-        full = api.forward_logits(p, chunked,
-                                  {"tokens": torch.cat([tokens, nxt], 1)})
+        full = api.forward_logits(
+            p, chunked, {**batch, "tokens": torch.cat([tokens, nxt], 1)})
         d_tf = (dec[:, 0].float() - full[:, s].float()).abs().max().item()
     return d_impl, d_tf, std
 
@@ -1481,55 +1513,74 @@ def serve_numbers(r: dict) -> dict:
         top_device_ms=[[name[:60], ms, n] for name, ms, n in r["top"]])
 
 
+def serve_and_hold(dev, card: str, tag: str, cfg, batch, new_tokens: int,
+                   extra=None) -> tuple[int, dict]:
+    """A main path of the dense stack at full width: weights from seed 0,
+    ``launch.serve.generate`` timed by ``serve_timed`` (one flash launch
+    a layer), then ``llm_diffs`` in bf16 and, at 2 layers, in f32; the
+    bf16 model is freed before the f32 one is drawn.  ``extra(params)``
+    adds numbers of its own on the bf16 model.  Prints one ``[tag]``
+    line, checks the [llm] tolerances, returns the launches and the
+    printed row."""
+    import dataclasses
+    import torch
+    from repro_torch.models import api
+
+    params = api.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                             device=dev)
+    n_params = api.count_params(params)
+    r = serve_timed(cfg, params, batch, new_tokens, f"{tag}/generate")
+    launches = r["launches"]
+    check(launches == cfg.n_layers,
+          f"{tag}: {launches} flash_attention launches, expected "
+          f"{cfg.n_layers}")
+    bf16_impl, bf16_tf, bf16_std = llm_diffs(cfg, params, batch)
+    tol = BF16_LOGIT_TOL * bf16_std
+    more = extra(params) if extra else {}
+    del params
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, n_layers=2, compute_dtype="float32")
+    params32 = api.init_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg32, device=dev)
+    f32_impl, f32_tf, f32_std = llm_diffs(cfg32, params32, batch)
+    del params32
+    torch.cuda.empty_cache()
+    b, prompt = batch["tokens"].shape
+    row = dict(
+        card=card, arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        heads=[cfg.n_heads, cfg.n_kv_heads, cfg.head_dim], d_ff=cfg.d_ff,
+        vocab=cfg.vocab_size, compute_dtype=cfg.compute_dtype,
+        batch=b, prompt=prompt, new_tokens=new_tokens,
+        params=n_params, **serve_numbers(r),
+        f32_pallas_vs_chunked=f32_impl, f32_teacher_forcing=f32_tf,
+        f32_logits_std=f32_std, bf16_pallas_vs_chunked=bf16_impl,
+        bf16_teacher_forcing=bf16_tf, bf16_logits_std=bf16_std,
+        bf16_tol=tol, **more)
+    print(f"[{tag}] " + json.dumps(row), flush=True)
+    check(f32_impl <= 1e-3, f"{tag} f32: pallas vs chunked {f32_impl} > 1e-3")
+    check(f32_tf <= 2e-3, f"{tag} f32: teacher forcing {f32_tf} > 2e-3")
+    check(bf16_impl <= tol,
+          f"{tag} bf16: pallas vs chunked {bf16_impl} > {tol}")
+    check(bf16_tf <= tol, f"{tag} bf16: teacher forcing {bf16_tf} > {tol}")
+    return launches, row
+
+
 def llm_phase(dev, card: str) -> int:
     """Main path 3: ``launch.serve.generate`` with Mistral-NeMo-12B at full
     width (8 layers), prefill through the flash-attention kernel."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.models import api
 
     cfg = dataclasses.replace(get_config(LLM_ARCH), n_layers=LLM_LAYERS,
                               attn_impl="pallas")
     print(f"[llm] reduced: {json.dumps(LLM_REDUCED, ensure_ascii=False)}",
           flush=True)
-    params = api.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
-                             device=dev)
-    n_params = api.count_params(params)
     tokens = torch.randint(
         0, cfg.vocab_size, (LLM_BATCH, LLM_PROMPT), dtype=torch.int32,
         generator=torch.Generator(device=dev).manual_seed(1), device=dev)
-    r = serve_timed(cfg, params, {"tokens": tokens}, LLM_NEW,
-                    "llm/generate")
-    launches = r["launches"]
-    check(launches == cfg.n_layers,
-          f"llm: {launches} flash_attention launches, expected "
-          f"{cfg.n_layers}")
-
-    bf16_impl, bf16_tf, bf16_std = llm_diffs(cfg, params, tokens)
-    tol = BF16_LOGIT_TOL * bf16_std
-    del params
-    cfg32 = dataclasses.replace(cfg, n_layers=2, compute_dtype="float32")
-    params32 = api.init_params(torch.Generator(device=dev).manual_seed(0),
-                               cfg32, device=dev)
-    f32_impl, f32_tf, f32_std = llm_diffs(cfg32, params32, tokens)
-    del params32
-    print("[llm] " + json.dumps(dict(
-        card=card, arch=LLM_ARCH, n_layers=cfg.n_layers, d_model=cfg.d_model,
-        heads=[cfg.n_heads, cfg.n_kv_heads, cfg.head_dim], d_ff=cfg.d_ff,
-        vocab=cfg.vocab_size, compute_dtype=cfg.compute_dtype,
-        batch=LLM_BATCH, prompt=LLM_PROMPT, new_tokens=LLM_NEW,
-        params=n_params, **serve_numbers(r),
-        f32_pallas_vs_chunked=f32_impl, f32_teacher_forcing=f32_tf,
-        f32_logits_std=f32_std, bf16_pallas_vs_chunked=bf16_impl,
-        bf16_teacher_forcing=bf16_tf, bf16_logits_std=bf16_std,
-        bf16_tol=tol)), flush=True)
-    check(f32_impl <= 1e-3, f"llm f32: pallas vs chunked {f32_impl} > 1e-3")
-    check(f32_tf <= 2e-3, f"llm f32: teacher forcing {f32_tf} > 2e-3")
-    check(bf16_impl <= tol,
-          f"llm bf16: pallas vs chunked {bf16_impl} > {tol}")
-    check(bf16_tf <= tol, f"llm bf16: teacher forcing {bf16_tf} > {tol}")
-    return launches
+    return serve_and_hold(dev, card, "llm", cfg, {"tokens": tokens},
+                          LLM_NEW)[0]
 
 
 MOE_BATCH, MOE_PROMPT, MOE_NEW = 4, 1024, 32
@@ -1742,6 +1793,216 @@ def moe_phase(dev, card: str) -> int:
           f"moe: EP exchanged {exact['ep_exchanged_bytes']} bytes, "
           f"expected {exact['ep_expected_bytes']}")
     return g["flash_attention_launches"]
+
+
+VLM_ARCH, VLM_LAYERS = "qwen2-vl-72b", 8
+VLM_REDUCED = {"n_layers": "80 -> 8 (0.8777 B parameters a layer ≈ 5.27 GB "
+                           "as f32 masters plus the bf16 compute copy; 8 "
+                           "layers plus the embedding and the untied head "
+                           "(2.49 B) are 9.51 B parameters ≈ 57.1 GB; 10 "
+                           "layers ≈ 67.6 GB before activations and the f32 "
+                           "check model)"}
+VLM_BATCH, VLM_PROMPT, VLM_NEW = 4, 1024, 32
+
+
+def vlm_phase(dev, card: str) -> int:
+    """Main path 6: ``launch.serve.generate`` with Qwen2-VL-72B at full
+    width (8 of 80 layers), bf16 compute over f32 masters, prefill
+    through the flash-attention kernel at group 8, a seeded normal
+    ``vision_embeds`` stub spliced over the first 256 positions; the
+    [llm] exactness checks with the stub, the splice's effect and M-RoPE
+    against RoPE at full width.  Returns the flash-attention launches of
+    one ``generate``."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import api, rope
+
+    cfg = dataclasses.replace(get_config(VLM_ARCH), n_layers=VLM_LAYERS,
+                              attn_impl="pallas")
+    print(f"[vlm] reduced: {json.dumps(VLM_REDUCED, ensure_ascii=False)}",
+          flush=True)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (VLM_BATCH, VLM_PROMPT),
+                           dtype=torch.int32, generator=gen, device=dev)
+
+    def stub():
+        return torch.randn(VLM_BATCH, cfg.vision_seq, cfg.d_model,
+                           generator=gen, device=dev).to(
+                               getattr(torch, cfg.compute_dtype))
+
+    batch = {"tokens": tokens, "vision_embeds": stub()}
+
+    def extra(params) -> dict:
+        # the splice: another stub, other last-token logits
+        with torch.inference_mode():
+            p = api.prepare(params, cfg)
+            a, _ = api.prefill_step(p, cfg, batch)
+            b, _ = api.prefill_step(p, cfg, {**batch,
+                                             "vision_embeds": stub()})
+            splice = (a.float() - b.float()).abs().max().item()
+            del p, a, b
+        # M-RoPE with the three streams equal (the stub's) is RoPE, at
+        # the published sections over head dim 128 and theta 1e6
+        x = torch.randn(VLM_BATCH, cfg.n_heads, VLM_PROMPT, cfg.head_dim,
+                        generator=gen, device=dev)
+        pos = torch.arange(VLM_PROMPT, dtype=torch.int32,
+                           device=dev)[None].expand(VLM_BATCH, -1)
+        mrope = (rope.apply_mrope(x, pos[None].expand(3, -1, -1),
+                                  cfg.mrope_sections, theta=cfg.rope_theta)
+                 - rope.apply_rope(x, pos, theta=cfg.rope_theta))
+        return dict(qkv_bias=cfg.qkv_bias,
+                    mrope_sections=list(cfg.mrope_sections),
+                    rope_theta=cfg.rope_theta, vision_seq=cfg.vision_seq,
+                    splice_logit_change=splice,
+                    mrope_vs_rope=mrope.abs().max().item())
+
+    launches, row = serve_and_hold(dev, card, "vlm", cfg, batch, VLM_NEW,
+                                   extra)
+    check(row["splice_logit_change"] > 0,
+          "vlm: another vision stub left the logits unchanged")
+    check(row["mrope_vs_rope"] == 0,
+          f"vlm: M-RoPE over equal streams is {row['mrope_vs_rope']} off "
+          "RoPE")
+    return launches
+
+
+PIPE_ARCH = "mistral-nemo-12b"
+PIPE_STAGES, PIPE_MICRO, PIPE_TOKENS = 4, 8, 1024
+# each stage's weight gradient against autograd over the four blocks in
+# sequence: the same f32 products, summed over the microbatches in the
+# same order; each leaf within 1e-4 of its largest element (the [train]
+# exactness rule)
+PIPE_GRAD_OF_MAX = 1e-4
+
+
+def pipe_phase(dev, card: str) -> None:
+    """``core.pipeline.pipeline_step`` on 4 logical devices of the card
+    (a ``Mesh`` with axis ``"stage"``): each stage one f32
+    Mistral-NeMo-12B block at full width through ``block_apply`` in
+    train mode with chunked attention, M 8 microbatches of 1,024 tokens;
+    the bodies run in the derived timetable's order, the hops and bytes
+    are counted, and each stage's weight gradient is held against
+    autograd over the four blocks in sequence.  No kernel of ``csrc/``
+    runs here."""
+    import dataclasses
+    import torch
+    from repro_torch import dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import (derive_pipeline_schedule,
+                                           pipeline_step, schedule_table)
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.models import transformer
+
+    s_, m_, t_ = PIPE_STAGES, PIPE_MICRO, PIPE_TOKENS
+    cfg = dataclasses.replace(get_config(PIPE_ARCH), n_layers=s_,
+                              compute_dtype="float32", attn_impl="chunked")
+    params = transformer.tree(transformer.init_block(
+        torch.Generator(device=dev).manual_seed(0), cfg, layers=s_,
+        device=dev))
+    n_params = sum(a.numel() for a in transformer.tree_leaves(params))
+    micros = torch.randn(m_, t_, cfg.d_model, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    positions = torch.arange(t_, dtype=torch.int32, device=dev)[None]
+    stage_of = {params["ln1"]["scale"][s].data_ptr(): s for s in range(s_)}
+    order = []
+
+    def block(w, x):
+        return transformer.block_apply(w, x[None], cfg, positions,
+                                       mode="train")[0][0]
+
+    def stage_fwd(w, x):
+        order.append(("F", stage_of.get(w["ln1"]["scale"].data_ptr())))
+        return block(w, x)
+
+    def stage_bwd(w, x, g):
+        order.append(("B", stage_of.get(w["ln1"]["scale"].data_ptr())))
+        wg = transformer.tree_map(lambda a: a.detach().requires_grad_(True),
+                                  w)
+        xg = x.detach().requires_grad_(True)
+        leaves = transformer.tree_leaves(wg)
+        with torch.enable_grad():
+            gx, *gw = torch.autograd.grad(block(wg, xg), [xg] + leaves, g)
+        by_leaf = {id(a): g for a, g in zip(leaves, gw)}
+        return gx, transformer.tree_map(lambda a: by_leaf[id(a)], wg)
+
+    devs = dist.logical_devices(s_, dev)
+    mesh = dist.Mesh(devs, ("stage",))
+    table = derive_pipeline_schedule(s_, m_)
+    print("[pipe] timetable\n" + schedule_table(table), flush=True)
+    # warm-up: one body of each kind on one microbatch
+    w0 = transformer.tree_map(lambda a: a[0], params)
+    stage_bwd(w0, micros[0], torch.ones_like(micros[0]))
+    del w0
+    order.clear()
+
+    torch.cuda.synchronize()
+    fa_before = fa.flash_attention.launches
+    pipeline_step.hops = pipeline_step.hopped_bytes = 0
+    t0 = time.perf_counter()
+    dw = pipeline_step(stage_fwd, stage_bwd, params, micros, mesh=mesh,
+                       stage_axis="stage", n_stages=s_)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    hops, hopped = pipeline_step.hops, pipeline_step.hopped_bytes
+
+    # the sequential model under autograd, summed over the microbatches
+    seq = transformer.tree_map(lambda a: a.detach().requires_grad_(True),
+                               params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for m in range(m_):
+        h = micros[m]
+        for s in range(s_):
+            h = block(transformer.tree_map(lambda a: a[s], seq), h)
+        h.sum().backward()
+        del h
+    torch.cuda.synchronize()
+    seq_wall = time.perf_counter() - t0
+    flat_dw = transformer.tree_leaves(dw)
+    flat_seq = transformer.tree_leaves(seq)
+    worst, smallest = 0.0, math.inf
+    for got, want in zip(flat_dw, flat_seq):
+        for s in range(s_):
+            ref = want.grad[s]
+            top = ref.abs().max().item()
+            smallest = min(smallest, top)
+            worst = max(worst, (got[s] - ref).abs().max().item() /
+                        max(top, 1e-30))
+    clocks = len(table)
+    bubble = 1 - 2 * s_ * m_ / (s_ * clocks)
+    want_order = [(t.kind, t.stage) for row in table for t in row if t]
+    want_bytes = 2 * (s_ - 1) * m_ * t_ * cfg.d_model * 4
+    # the blocks' products over every (stage, microbatch) body, forward
+    # only; the step does 4 times that (each B recomputes its F), autograd
+    # in sequence 3 times
+    fwd_flop = 2 * n_params * t_ * m_
+    print("[pipe] " + json.dumps(dict(
+        card=card, arch=PIPE_ARCH, stages=s_, micro=m_, tokens=t_,
+        d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads,
+                                    cfg.head_dim], d_ff=cfg.d_ff,
+        params_per_stage=n_params // s_, clocks=clocks, hops=hops,
+        hopped_bytes=hopped, wall_ms=wall * 1e3, sequential_ms=seq_wall * 1e3,
+        bubble_share=bubble, forward_product_tflop=fwd_flop / 1e12,
+        step_tflop_per_s=4 * fwd_flop / wall / 1e12,
+        sequential_tflop_per_s=3 * fwd_flop / seq_wall / 1e12,
+        grad_err_of_max=worst,
+        smallest_grad_leaf_max=smallest,
+        flash_attention_launches=fa.flash_attention.launches - fa_before)),
+        flush=True)
+    del dw, seq, params, micros
+    torch.cuda.empty_cache()
+    check(clocks == 2 * m_ + 2 * (s_ - 1),
+          f"pipe: {clocks} clocks, expected {2 * m_ + 2 * (s_ - 1)}")
+    check(order == want_order,
+          "pipe: the bodies did not run in the derived timetable's order")
+    check(hops == 2 * (s_ - 1) * m_,
+          f"pipe: {hops} hops, expected {2 * (s_ - 1) * m_}")
+    check(hopped == want_bytes,
+          f"pipe: {hopped} bytes hopped, expected {want_bytes}")
+    check(smallest > 0, "pipe: a stage's weight gradient is all zero")
+    check(worst <= PIPE_GRAD_OF_MAX,
+          f"pipe: dW off autograd by {worst} of a leaf's largest")
 
 
 TRAIN_ARCH = "mistral-nemo-12b"
@@ -2098,11 +2359,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_launches = moe_phase(dev, card)
     torch.cuda.empty_cache()
+    vlm_launches = vlm_phase(dev, card)
+    torch.cuda.empty_cache()
+    pipe_phase(dev, card)
+    torch.cuda.empty_cache()
     train_phase(dev, card)
     by_path = {"depman": depman_phase(dev, central),
                "sharded": sharded_phase(dev, central),
                "fuzz": {"matmul_batched": fuzz_phase(dev)},
-               "moe": {"flash_attention": moe_launches}}
+               "moe": {"flash_attention": moe_launches},
+               "vlm": {"flash_attention": vlm_launches}}
     sim_phase(dev, central)
     obs_phase(dev)
     for row in kernels:

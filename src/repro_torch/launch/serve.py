@@ -84,10 +84,17 @@ def main(argv=None):
         0, cfg.vocab_size, (args.batch, args.prompt_len),
         generator=torch.Generator(device=device).manual_seed(1),
         device=device, dtype=torch.int32)
+    batch = {"tokens": tokens}
+    if cfg.vision_seq:
+        # the VLM family's stub: zero patch embeddings over the first
+        # vision_seq positions
+        batch["vision_embeds"] = torch.zeros(
+            args.batch, cfg.vision_seq, cfg.d_model,
+            dtype=getattr(torch, cfg.compute_dtype), device=device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.perf_counter()
-    out = generate(cfg, params, {"tokens": tokens},
+    out = generate(cfg, params, batch,
                    max_new_tokens=args.max_new_tokens,
                    max_len=args.prompt_len + args.max_new_tokens + 8)
     out = out.cpu()

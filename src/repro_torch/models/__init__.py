@@ -1,7 +1,9 @@
 """Model zoo, ported family by family: so far the dense decoder-only
-family (Mistral-NeMo-12B, Qwen1.5-4B, Nemotron-4-15B, Command-R-35B)
-and the MoE family (DeepSeek-V2-Lite with MLA attention,
-Granite-3.0-1B-A400M; ``moe.py``, ``mla.py``).
+family (Mistral-NeMo-12B, Qwen1.5-4B, Nemotron-4-15B, Command-R-35B),
+the MoE family (DeepSeek-V2-Lite with MLA attention,
+Granite-3.0-1B-A400M; ``moe.py``, ``mla.py``) and the VLM family
+(Qwen2-VL-72B: the dense stack with M-RoPE, its patch embeddings a
+precomputed stub spliced over the first positions).
 
 Parameters live in an ``nn.Module`` tree (``transformer.Decoder``) whose
 block weights are stacked on a leading layer axis; the functions take

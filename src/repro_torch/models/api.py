@@ -23,8 +23,8 @@ __all__ = ["init_params", "count_params", "prepare", "loss_fn",
 def init_params(generator: torch.Generator, cfg, *, device="cuda"):
     """A ``transformer.Decoder`` on ``device`` with weights drawn from
     ``generator`` (on the same kind of device) in the reference's
-    distribution.  Families other than ``dense`` and ``moe`` raise
-    ``NotImplementedError``."""
+    distribution.  Families other than ``dense``, ``moe`` and ``vlm``
+    raise ``NotImplementedError``."""
     return transformer.init_decoder(generator, cfg, device=device)
 
 
@@ -69,7 +69,8 @@ def _logits_fn(p, cfg):
 
 # ---------------------------------------------------------------------------
 def loss_fn(params, cfg, batch):
-    """batch: {"tokens": (B, S) int, "loss_mask": (B, S) opt}.  Next-token
+    """batch: {"tokens": (B, S) int, "loss_mask": (B, S) opt,
+    "vision_embeds": (B, nv, d) opt, the VLM family's stub}.  Next-token
     CE (a 0-dim f32 tensor) through the chunked loss: the label of the
     last position is 0 and masked out, ``loss_mask`` multiplies the mask,
     and the first ``cfg.vision_seq`` positions (a vision stub's) carry
@@ -77,7 +78,9 @@ def loss_fn(params, cfg, batch):
     ``params.requires_grad_(True)``."""
     tokens = batch["tokens"]
     p = prepare(params, cfg)
-    hidden, _ = transformer.forward(p, cfg, tokens, mode="train")
+    hidden, _ = transformer.forward(
+        p, cfg, tokens, vision_embeds=batch.get("vision_embeds"),
+        mode="train")
     labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], 1)
     mask = torch.cat([torch.ones_like(tokens[:, 1:], dtype=torch.float32),
                       torch.zeros_like(tokens[:, :1], dtype=torch.float32)],
@@ -94,15 +97,18 @@ def loss_fn(params, cfg, batch):
 def forward_logits(params, cfg, batch):
     """Full-sequence logits (small configs / tests only)."""
     p = prepare(params, cfg)
-    hidden, _ = transformer.forward(p, cfg, batch["tokens"], mode="train")
+    hidden, _ = transformer.forward(
+        p, cfg, batch["tokens"], vision_embeds=batch.get("vision_embeds"),
+        mode="train")
     return _logits_fn(p, cfg)(hidden)
 
 
 def prefill_step(params, cfg, batch):
     """Run the prompt; return (last-token logits, caches)."""
     p = prepare(params, cfg)
-    hidden, caches = transformer.forward(p, cfg, batch["tokens"],
-                                         mode="prefill")
+    hidden, caches = transformer.forward(
+        p, cfg, batch["tokens"], vision_embeds=batch.get("vision_embeds"),
+        mode="prefill")
     return _logits_fn(p, cfg)(hidden[:, -1:]), caches
 
 
@@ -119,7 +125,7 @@ def decode_step(params, cfg, token, caches, pos):
 # ---------------------------------------------------------------------------
 def init_cache(cfg, batch: int, seq_len: int, dtype=None, *, device="cuda"):
     """Zeroed caches of the decode shape (filled by prefill in real
-    serving): for the dense family {"k", "v"} of (n_layers, B,
+    serving): for the dense and VLM families {"k", "v"} of (n_layers, B,
     n_kv_heads, S, head_dim); for the MoE family one such tree per
     segment, {"dense", "moe"} ({"moe"} alone with no leading dense
     layer), each {"c_kv": (n, B, S, kv_lora_rank), "k_rope": (n, B, S,
@@ -139,7 +145,7 @@ def init_cache(cfg, batch: int, seq_len: int, dtype=None, *, device="cuda"):
         return {"c_kv": zeros(n, b, s, cfg.kv_lora_rank),
                 "k_rope": zeros(n, b, s, cfg.rope_head_dim)}
 
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         return transformer_cache_tree(attn_cache(cfg.n_layers))
     seg_cache = mla_cache if cfg.mla else attn_cache
     out = {"moe": seg_cache(cfg.n_layers - cfg.first_dense)}

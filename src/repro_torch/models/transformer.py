@@ -1,5 +1,5 @@
-"""Architecture assembly for the dense and MoE decoder-only families
-(the JAX package's ``models/transformer.py``).
+"""Architecture assembly for the dense, MoE and VLM decoder-only
+families (the JAX package's ``models/transformer.py``).
 
 The block parameters are stacked on a leading layer axis, as the
 reference's ``_stack_init`` stacks them, and the reference's ``lax.scan``
@@ -8,7 +8,10 @@ over that axis is a Python loop over the layers, each under
 counterpart of the reference's ``jax.checkpoint``.  The MoE family runs
 two segments, ``dense_blocks`` (the leading dense layers, deepseek's
 first) and ``moe_blocks``, each block with MLA attention when
-``cfg.mla`` is set.  The other families (``vlm``, ``hybrid``, ``ssm``,
+``cfg.mla`` is set.  The VLM family (Qwen2-VL) is the dense stack with
+M-RoPE and a vision splice: precomputed patch embeddings
+(``vision_embeds``) replace the first positions of the token embeddings
+(:func:`_embed_tokens`).  The other families (``hybrid``, ``ssm``,
 ``audio``) raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -27,9 +30,8 @@ from . import mla as mla_mod
 from . import moe as moe_mod
 from .layers import FFN, Embedding, Linear, Norm, draw, embed, ffn, norm
 
-PORTED = ("dense", "moe")
+PORTED = ("dense", "moe", "vlm")
 _NOT_PORTED = {
-    "vlm": "ROADMAP queue 1 item 12 (the VLM family)",
     "hybrid": "ROADMAP queue 1 item 12 (the hybrid Mamba2 family)",
     "ssm": "ROADMAP queue 1 item 12 (the xLSTM family)",
     "audio": "ROADMAP queue 1 item 12 (the encoder-decoder family)",
@@ -136,8 +138,8 @@ def segments(cfg) -> list[tuple[str, int]]:
 class Decoder(nn.Module):
     """The parameter tree of ``init_decoder``: ``embed``, ``final_norm``,
     ``lm_head`` (absent when the embeddings are tied) and, for the dense
-    family, ``blocks`` stacked over ``n_layers``; for the MoE family,
-    ``dense_blocks`` stacked over ``first_dense`` (FFN width
+    and VLM families, ``blocks`` stacked over ``n_layers``; for the MoE
+    family, ``dense_blocks`` stacked over ``first_dense`` (FFN width
     ``first_dense_ff``; absent when there are none) and ``moe_blocks``
     over the rest.  Its ``state_dict`` keys are the reference's pytree
     paths joined by dots."""
@@ -150,7 +152,7 @@ class Decoder(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = Linear(cfg.d_model, cfg.padded_vocab,
                                   device=device)
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "vlm"):
             self.blocks = Block(cfg, layers=cfg.n_layers, device=device)
             return
         if cfg.first_dense:
@@ -203,13 +205,22 @@ def _positions(tokens_shape, offset=0, device=None):
 
 
 # ---------------------------------------------------------------------------
-def _embed_tokens(p, cfg, tokens):
+def _embed_tokens(p, cfg, tokens, vision_embeds=None):
+    """The token embeddings in the compute dtype; with ``vision_embeds``
+    (B, nv, d) and ``cfg.vision_seq`` set, the first ``nv`` positions are
+    the vision embeddings instead (a new tensor, concatenated as the
+    reference concatenates)."""
     x = embed(p["embed"], tokens,
               scale=cfg.d_model ** 0.5 if cfg.embed_scale else None)
-    return x.to(_cdtype(cfg))
+    x = x.to(_cdtype(cfg))
+    if vision_embeds is not None and cfg.vision_seq:
+        nv = vision_embeds.shape[1]
+        x = torch.cat([vision_embeds.to(x.dtype), x[:, nv:]], 1)
+    return x
 
 
-def forward(p, cfg, tokens, *, mode: str = "train", caches=None, pos=None):
+def forward(p, cfg, tokens, *, vision_embeds=None, mode: str = "train",
+            caches=None, pos=None):
     """Unified entry over a parameter tree already cast for compute
     (``api.prepare``).  Returns (hidden, caches):
 
@@ -217,14 +228,17 @@ def forward(p, cfg, tokens, *, mode: str = "train", caches=None, pos=None):
     * prefill: hidden (B, S, d), fresh caches
     * decode:  hidden (B, 1, d), caches updated in place  (pos: int index)
 
-    The MoE family's caches are ``{"dense", "moe"}``, one per segment, or
-    ``{"moe"}`` alone when it has no leading dense layer.
+    ``vision_embeds`` (B, nv, d), the VLM family's stub of patch
+    embeddings, replaces the first ``nv`` positions in train and prefill;
+    decode takes none.  The MoE family's caches are ``{"dense", "moe"}``,
+    one per segment, or ``{"moe"}`` alone when it has no leading dense
+    layer.
     """
     require_ported(cfg)
-    x = _embed_tokens(p, cfg, tokens)
+    x = _embed_tokens(p, cfg, tokens, vision_embeds)
     positions = _positions(tokens.shape, device=tokens.device) \
         if mode != "decode" else None
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         x, out_caches = _run_attn_stack(p["blocks"], x, cfg, positions,
                                         mode, caches, pos, moe_layer=False)
     else:

@@ -20,7 +20,12 @@ not under a mesh, where every group falls back as ``sharded_mesh``), the serving
 on the card, and the LLM test counts one flash-attention launch per layer
 in one ``generate``; the MoE tests run a reduced DeepSeek-V2-Lite and
 Granite-3.0-1B-A400M ``generate`` on the card and hold their logits
-against the CPU's plain path in bf16.  The fuzz tests replay a few seeds of the
+against the CPU's plain path in bf16; the VLM test serves a reduced
+Qwen2-VL with its vision stub on the card (one flash launch a layer,
+the CPU run's tokens in f32), and the flash kernel is held against its
+plain version at Qwen2-VL-72B's prefill shape (group 8).  The pipeline
+test runs ``pipeline_step`` on 4 logical devices of the card against
+autograd over the stages in sequence.  The fuzz tests replay a few seeds of the
 differential corpus on the card under the sharded dependence managers
 (both pumps), with ``_gemm``'s groups on the GEMM kernel at 8x8x8.
 The sharded-executor tests run the apps with no mesh, on
@@ -403,6 +408,7 @@ def test_cuda_serve_lm_on_the_host_executor(cuda_device):
     (1, 2, 2, 96, 40, 128, True, 16, 8),        # ... and D 128
     (1, 6, 1, 50, 70, 128, True, 256, 256),     # group 6, ragged
     (2, 3, 3, 130, 130, 32, False, 256, 256),   # full, ragged, D 32
+    (1, 16, 2, 40, 72, 128, True, 256, 256),    # group 8, ragged
 ])
 def test_cuda_flash_attention_matches_plain(cuda_device, dtype, b, hq, hkv,
                                             sq, skv, d, causal, bq, bk):
@@ -808,3 +814,106 @@ def test_cuda_train_resume_is_bitwise_under_deterministic_algorithms(
                     list(p_b.parameters()) + tree_leaves(o_b.mu) +
                     tree_leaves(o_b.nu)):
         assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the VLM family and the pipeline schedule
+@pytest.mark.cuda
+def test_cuda_flash_attention_at_the_qwen2_vl_prefill_shape(cuda_device):
+    """Qwen2-VL-72B's prefill, B 4 x 1,024, Hq 64, Hkv 8, D 128, bf16,
+    causal: group 8, so a block holds 8 positions of each of 8 heads;
+    every row, the causal limits at each block's edge included, within
+    the bf16 tolerance of the plain version, in one launch."""
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    q, k, v = (torch.randn(s, generator=g, device=cuda_device)
+               .to(torch.bfloat16)
+               for s in ((4, 64, 1024, 128), (4, 8, 1024, 128),
+                         (4, 8, 1024, 128)))
+    before = fa_kernel.flash_attention.launches
+    got = fa_kernel.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa_kernel.flash_attention.launches == before + 1
+    torch.testing.assert_close(
+        got.float(), fa_kernel.flash_attention_plain(q, k, v,
+                                                     causal=True).float(),
+        rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_vlm_generate_launches_once_per_layer(cuda_device):
+    """A reduced Qwen2-VL with a vision stub, in f32 compute: prefill
+    launches the kernel once per layer, decode never, and the tokens
+    equal the CPU run's on the same weights and stub."""
+    cfg = configs.get_config("qwen2-vl-72b").reduced(attn_impl="pallas")
+    params = api.init_params(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 64),
+                                     dtype=torch.int32, generator=g),
+             "vision_embeds": torch.randn(2, cfg.vision_seq, cfg.d_model,
+                                          generator=g)}
+    kw = dict(max_new_tokens=4, max_len=64 + 4 + 8)
+    on_cpu = llm_serve.generate(cfg, params, batch, **kw)
+    params = params.to(cuda_device)
+    fa_kernel.flash_attention.launches = 0
+    out = llm_serve.generate(
+        cfg, params, {k: v.to(cuda_device) for k, v in batch.items()}, **kw)
+    torch.cuda.synchronize()
+    assert fa_kernel.flash_attention.launches == cfg.n_layers
+    assert torch.equal(out.cpu(), on_cpu)
+
+
+@pytest.mark.cuda
+def test_cuda_pipeline_step_on_logical_devices_matches_autograd(cuda_device):
+    """``pipeline_step`` with 4 stages of a reduced Mistral-NeMo block
+    (f32, chunked attention) on 4 logical devices of the card, M 4
+    microbatches of 64 tokens: 2 (S-1) M hops, the gradient stack on the
+    caller's device, within 1e-5 of each leaf's largest against autograd
+    over the four blocks in sequence."""
+    from repro_torch import dist
+    from repro_torch.core.pipeline import pipeline_step
+    from repro_torch.models import transformer
+    n_s, n_m, t = 4, 4, 64
+    cfg = configs.get_config("mistral-nemo-12b").reduced()
+    params = transformer.tree(transformer.init_block(
+        torch.Generator(device=cuda_device).manual_seed(0), cfg, layers=n_s,
+        device=cuda_device))
+    micros = torch.randn(n_m, t, cfg.d_model, device=cuda_device,
+                         generator=torch.Generator(
+                             device=cuda_device).manual_seed(1))
+    pos = torch.arange(t, dtype=torch.int32, device=cuda_device)[None]
+
+    def fwd(w, x):
+        return transformer.block_apply(w, x[None], cfg, pos)[0][0]
+
+    def bwd(w, x, g):
+        # torch.autograd.grad: the chunked attention's checkpoint hooks
+        # are outside what torch.func.vjp takes
+        wg = transformer.tree_map(lambda a: a.detach().requires_grad_(True),
+                                  w)
+        xg = x.detach().requires_grad_(True)
+        leaves = transformer.tree_leaves(wg)
+        with torch.enable_grad():
+            gx, *gw = torch.autograd.grad(fwd(wg, xg), [xg] + leaves, g)
+        by_leaf = {id(a): u for a, u in zip(leaves, gw)}
+        return gx, transformer.tree_map(lambda a: by_leaf[id(a)], wg)
+
+    pipeline_step.hops = 0
+    dw = pipeline_step(fwd, bwd, params, micros,
+                       mesh=dist.Mesh(dist.logical_devices(n_s, cuda_device),
+                                      ("stage",)),
+                       stage_axis="stage", n_stages=n_s)
+    assert pipeline_step.hops == 2 * (n_s - 1) * n_m
+    seq = transformer.tree_map(lambda a: a.detach().requires_grad_(True),
+                               params)
+    for m in range(n_m):
+        h = micros[m]
+        for s in range(n_s):
+            h = fwd(transformer.tree_map(lambda a: a[s], seq), h)
+        h.sum().backward()
+    for got, want in zip(transformer.tree_leaves(dw),
+                         transformer.tree_leaves(seq)):
+        assert got.device == cuda_device
+        err = (got - want.grad).abs().amax(dim=tuple(range(1, got.ndim)))
+        top = want.grad.abs().amax(dim=tuple(range(1, got.ndim)))
+        assert (err <= 1e-5 * top).all(), (err, top)
