@@ -23,8 +23,8 @@ __all__ = ["init_params", "count_params", "prepare", "loss_fn",
 def init_params(generator: torch.Generator, cfg, *, device="cuda"):
     """A ``transformer.Decoder`` on ``device`` with weights drawn from
     ``generator`` (on the same kind of device) in the reference's
-    distribution.  Families other than ``dense``, ``moe`` and ``vlm``
-    raise ``NotImplementedError``."""
+    distribution.  The ``audio`` family raises
+    ``NotImplementedError``."""
     return transformer.init_decoder(generator, cfg, device=device)
 
 
@@ -32,18 +32,39 @@ def count_params(params) -> int:
     return sum(p.numel() for p in params.parameters())
 
 
+# the stacked attention segments, cast as the reference's ``_prep_stack``
+# casts them
 STACKS = ("blocks", "dense_blocks", "moe_blocks")
+# the hybrid and ssm families' subtrees: the reference casts none of
+# them ahead; each op casts what it uses to the compute dtype
+CAST_AT_USE = ("mamba", "shared_in", "shared_attn", "mlstm", "slstm")
+# the leaves those ops cast: linear weights and biases, the convs, the
+# mLSTM head projections and skip.  The rest (A_log, dt_bias, D, norm
+# scales and biases, sLSTM's recurrence r) are read in f32.
+_CAST_LEAVES = ("w", "b", "conv_w", "conv_b", "wq", "wk", "wv", "skip")
+
+
+def _cast_at_use(t, cd):
+    return {k: _cast_at_use(v, cd) if isinstance(v, dict)
+            else (v.to(cd) if k in _CAST_LEAVES else v)
+            for k, v in t.items()}
 
 
 def prepare(params, cfg) -> dict:
-    """The parameter tree cast for compute, as the reference casts it at
-    every forward: the leaves of rank >= 2 of every stacked segment
-    (``blocks``, ``dense_blocks``, ``moe_blocks``: weights, the router
-    and the experts, and the per-layer norm scales and biases, rank 2
-    once stacked) to ``cfg.compute_dtype`` (``_prep_stack``), and the
-    output projection (``lm_head``, or the tied embedding table
-    transposed) as ``logits_out`` casts it.  The embedding table and the
-    final norm stay f32.  A no-op copy-free tree in f32 compute."""
+    """The parameter tree cast once for compute, each leaf as the
+    reference's ops cast it on every forward.  The stacked attention
+    segments (``blocks``, ``dense_blocks``, ``moe_blocks``) as
+    ``_prep_stack`` casts them: every leaf of rank >= 2 (weights, the
+    router and the experts, and the per-layer norm scales and biases,
+    rank 2 once stacked) to ``cfg.compute_dtype``.  The hybrid and
+    ``ssm`` subtrees (``mamba``, ``shared_in``, ``shared_attn``,
+    ``mlstm``, ``slstm``), which the reference never passes through
+    ``_prep_stack``: only the leaves its ops cast where they use them
+    (``_CAST_LEAVES``); ``A_log``, ``dt_bias``, ``D``, the norms and
+    sLSTM's ``r`` stay the f32 masters.  The output projection
+    (``lm_head``, or the tied embedding table transposed) as
+    ``logits_out`` casts it.  The embedding table and the final norm
+    stay f32.  A no-op copy-free tree in f32 compute."""
     if isinstance(params, dict):
         return params
     cd = transformer._cdtype(cfg)
@@ -53,6 +74,9 @@ def prepare(params, cfg) -> dict:
             p[name] = transformer.tree_map(
                 lambda a: a.to(cd) if a.ndim >= 2 and a.is_floating_point()
                 else a, p[name])
+    for name in CAST_AT_USE:
+        if name in p:
+            p[name] = _cast_at_use(p[name], cd)
     head = p["embed"]["table"].T if cfg.tie_embeddings else p["lm_head"]["w"]
     p["lm_head"] = {"w": head.to(cd)}
     return p
@@ -129,24 +153,67 @@ def init_cache(cfg, batch: int, seq_len: int, dtype=None, *, device="cuda"):
     n_kv_heads, S, head_dim); for the MoE family one such tree per
     segment, {"dense", "moe"} ({"moe"} alone with no leading dense
     layer), each {"c_kv": (n, B, S, kv_lora_rank), "k_rope": (n, B, S,
-    rope_head_dim)} under MLA."""
+    rope_head_dim)} under MLA.  For the hybrid family one entry per
+    Mamba segment in the lists ``mamba`` (f32 states (nl, B, H, N, dh))
+    and ``conv`` ((nl, B, K-1, d_in + 2N) in the compute dtype), and in
+    ``attn`` one {"k", "v"} of (B, n_kv_heads, S, head_dim) per shared
+    block call site.  For the ``ssm`` family per repeat ``mlstm`` (C, n,
+    m) f32 tuples stacked over its layers, ``mconv`` conv states in the
+    compute dtype and ``slstm`` (c, n, m, h) f32 tuples (m at -1e30)."""
     transformer.require_ported(cfg)
     dt = dtype or transformer._cdtype(cfg)
     b, s = batch, seq_len
 
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=dt, device=device)
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=device)
 
-    def attn_cache(n_layers):
-        shape = (n_layers, b, cfg.n_kv_heads, s, cfg.head_dim)
+    def neg(*shape):
+        return torch.full(shape, -1e30, dtype=torch.float32, device=device)
+
+    def attn_cache(*lead):
+        shape = lead + (b, cfg.n_kv_heads, s, cfg.head_dim)
         return {"k": zeros(*shape), "v": zeros(*shape)}
 
     def mla_cache(n):
         return {"c_kv": zeros(n, b, s, cfg.kv_lora_rank),
                 "k_rope": zeros(n, b, s, cfg.rope_head_dim)}
 
+    f32 = torch.float32
     if cfg.family in ("dense", "vlm"):
         return transformer_cache_tree(attn_cache(cfg.n_layers))
+    if cfg.family == "hybrid":
+        bounds = [0] + transformer._zamba_attn_positions(cfg) + \
+            [cfg.n_layers]
+        d_in, n_ssm, h = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
+        out = {"mamba": [], "conv": [], "attn": []}
+        for si in range(len(bounds) - 1):
+            nl = bounds[si + 1] - bounds[si]
+            out["mamba"].append(zeros(nl, b, h, n_ssm, d_in // h,
+                                      dtype=f32))
+            out["conv"].append(zeros(nl, b, cfg.ssm_d_conv - 1,
+                                     d_in + 2 * n_ssm))
+            if si > 0:
+                out["attn"].append(attn_cache())
+        return out
+    if cfg.family == "ssm":
+        n_s = transformer._xlstm_slstm_count(cfg)
+        per = (cfg.slstm_every - 1) if n_s else cfg.n_layers
+        n_m = cfg.n_layers - n_s
+        h, d_in = cfg.n_heads, cfg.xlstm_d_inner
+        dh, dmh = d_in // h, cfg.d_model // h
+        out = {"mlstm": [], "mconv": [], "slstm": []}
+        for r in range(n_s if n_s else 1):
+            nl = min((r + 1) * per, n_m) - r * per
+            out["mlstm"].append((zeros(nl, b, h, dh, dh, dtype=f32),
+                                 zeros(nl, b, h, dh, dtype=f32),
+                                 neg(nl, b, h)))
+            out["mconv"].append(zeros(nl, b, cfg.xlstm_d_conv - 1, d_in))
+            if n_s:
+                out["slstm"].append((zeros(b, h, dmh, dtype=f32),
+                                     zeros(b, h, dmh, dtype=f32),
+                                     neg(b, h, dmh),
+                                     zeros(b, h, dmh, dtype=f32)))
+        return out
     seg_cache = mla_cache if cfg.mla else attn_cache
     out = {"moe": seg_cache(cfg.n_layers - cfg.first_dense)}
     if cfg.first_dense:
@@ -161,10 +228,15 @@ def transformer_cache_tree(c):
 def pad_caches(caches, target_len: int):
     """Grow every sequence-indexed cache leaf (k/v/c_kv/k_rope, seq axis
     -2) to ``target_len`` with zeros so decode can continue past the
-    prompt length."""
+    prompt length.  Lists and tuples are walked too, a leaf named by the
+    nearest dict key above it (the hybrid family's ``attn`` list of
+    {"k", "v"}), as ``tree_map_with_path`` walks them in the reference;
+    every other leaf is returned as it is."""
     def visit(name, leaf):
         if isinstance(leaf, dict):
             return {k: visit(k, v) for k, v in leaf.items()}
+        if isinstance(leaf, (list, tuple)):
+            return type(leaf)(visit(name, v) for v in leaf)
         if name in ("k", "v", "c_kv", "k_rope") and \
                 leaf.shape[-2] < target_len:
             pad = leaf.new_zeros(leaf.shape[:-2] +

@@ -1,5 +1,5 @@
-"""Architecture assembly for the dense, MoE and VLM decoder-only
-families (the JAX package's ``models/transformer.py``).
+"""Architecture assembly for the dense, MoE, VLM, hybrid (Zamba2) and
+xLSTM decoder-only families (the JAX package's ``models/transformer.py``).
 
 The block parameters are stacked on a leading layer axis, as the
 reference's ``_stack_init`` stacks them, and the reference's ``lax.scan``
@@ -11,8 +11,13 @@ first) and ``moe_blocks``, each block with MLA attention when
 ``cfg.mla`` is set.  The VLM family (Qwen2-VL) is the dense stack with
 M-RoPE and a vision splice: precomputed patch embeddings
 (``vision_embeds``) replace the first positions of the token embeddings
-(:func:`_embed_tokens`).  The other families (``hybrid``, ``ssm``,
-``audio``) raise ``NotImplementedError`` naming their ROADMAP item.
+(:func:`_embed_tokens`).  The hybrid family (Zamba2) runs segments of
+stacked Mamba2 blocks with one shared attention block before each
+segment after the first (:func:`_zamba_forward`); the ``ssm`` family
+(xLSTM) runs repeats of stacked mLSTM blocks each followed by one sLSTM
+block (:func:`_xlstm_forward`).  Their caches are per-segment lists of
+f32 states.  The encoder-decoder family (``audio``) raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -26,15 +31,16 @@ from torch.utils.checkpoint import (checkpoint,
                                     noop_context_fn)
 
 from . import attention as attn_mod
+from . import mamba as mamba_mod
 from . import mla as mla_mod
 from . import moe as moe_mod
-from .layers import FFN, Embedding, Linear, Norm, draw, embed, ffn, norm
+from . import xlstm as xlstm_mod
+from .layers import (FFN, Embedding, Linear, Norm, draw, embed, ffn, linear,
+                     norm)
 
-PORTED = ("dense", "moe", "vlm")
+PORTED = ("dense", "moe", "vlm", "hybrid", "ssm")
 _NOT_PORTED = {
-    "hybrid": "ROADMAP queue 1 item 12 (the hybrid Mamba2 family)",
-    "ssm": "ROADMAP queue 1 item 12 (the xLSTM family)",
-    "audio": "ROADMAP queue 1 item 12 (the encoder-decoder family)",
+    "audio": "ROADMAP queue 1 item 12e (the encoder-decoder family)",
 }
 
 
@@ -134,6 +140,15 @@ def segments(cfg) -> list[tuple[str, int]]:
     raise ValueError(cfg.family)
 
 
+def _zamba_attn_positions(cfg) -> list[int]:
+    """Mamba-layer indices before which the shared attention block runs."""
+    return [i for i in range(cfg.attn_every, cfg.n_layers, cfg.attn_every)]
+
+
+def _xlstm_slstm_count(cfg) -> int:
+    return cfg.n_layers // cfg.slstm_every if cfg.slstm_every else 0
+
+
 # ---------------------------------------------------------------------------
 class Decoder(nn.Module):
     """The parameter tree of ``init_decoder``: ``embed``, ``final_norm``,
@@ -141,8 +156,13 @@ class Decoder(nn.Module):
     and VLM families, ``blocks`` stacked over ``n_layers``; for the MoE
     family, ``dense_blocks`` stacked over ``first_dense`` (FFN width
     ``first_dense_ff``; absent when there are none) and ``moe_blocks``
-    over the rest.  Its ``state_dict`` keys are the reference's pytree
-    paths joined by dots."""
+    over the rest; for the hybrid family, ``mamba`` stacked over
+    ``n_layers``, ``shared_in`` (2d -> d) and one unstacked
+    ``shared_attn`` block; for the ``ssm`` family, ``mlstm`` stacked over
+    the layers that are not sLSTM and ``slstm`` over the
+    ``n_layers // slstm_every`` that are (absent when there are none).
+    Its ``state_dict`` keys are the reference's pytree paths joined by
+    dots."""
 
     def __init__(self, cfg, *, device=None):
         super().__init__()
@@ -154,6 +174,21 @@ class Decoder(nn.Module):
                                   device=device)
         if cfg.family in ("dense", "vlm"):
             self.blocks = Block(cfg, layers=cfg.n_layers, device=device)
+            return
+        if cfg.family == "hybrid":
+            self.mamba = mamba_mod.Mamba(cfg, layers=cfg.n_layers,
+                                         device=device)
+            # one shared attention block and its 2d -> d input projection
+            self.shared_in = Linear(2 * cfg.d_model, cfg.d_model,
+                                    device=device)
+            self.shared_attn = Block(cfg, device=device)
+            return
+        if cfg.family == "ssm":
+            n_s = _xlstm_slstm_count(cfg)
+            self.mlstm = xlstm_mod.MLSTM(cfg, layers=cfg.n_layers - n_s,
+                                         device=device)
+            if n_s:
+                self.slstm = xlstm_mod.SLSTM(cfg, layers=n_s, device=device)
             return
         if cfg.first_dense:
             self.dense_blocks = Block(cfg, d_ff=cfg.first_dense_ff,
@@ -232,7 +267,8 @@ def forward(p, cfg, tokens, *, vision_embeds=None, mode: str = "train",
     embeddings, replaces the first ``nv`` positions in train and prefill;
     decode takes none.  The MoE family's caches are ``{"dense", "moe"}``,
     one per segment, or ``{"moe"}`` alone when it has no leading dense
-    layer.
+    layer; the hybrid and ``ssm`` families' are ``api.init_cache``'s
+    per-segment lists, their stacked states written in place in decode.
     """
     require_ported(cfg)
     x = _embed_tokens(p, cfg, tokens, vision_embeds)
@@ -241,6 +277,11 @@ def forward(p, cfg, tokens, *, vision_embeds=None, mode: str = "train",
     if cfg.family in ("dense", "vlm"):
         x, out_caches = _run_attn_stack(p["blocks"], x, cfg, positions,
                                         mode, caches, pos, moe_layer=False)
+    elif cfg.family == "hybrid":
+        x, out_caches = _zamba_forward(p, cfg, x, positions, mode, caches,
+                                       pos)
+    elif cfg.family == "ssm":
+        x, out_caches = _xlstm_forward(p, cfg, x, mode, caches)
     else:
         out_caches = {}
         if cfg.first_dense:
@@ -283,7 +324,7 @@ def _unstack(stacked) -> list[dict]:
     ``unbind`` a leaf, so the backward pass stacks the layers' gradients
     once)."""
     cols = tree_map(lambda a: a.unbind(0), stacked)
-    n = stacked["ln1"]["scale"].shape[0]
+    n = len(tree_leaves(cols)[0])
     return [tree_map(lambda c: c[i], cols) for i in range(n)]
 
 
@@ -316,3 +357,109 @@ def _run_attn_stack(stacked, x, cfg, positions, mode, caches, pos, *,
                                   for name, leaf in caches.items()},
                            pos=pos)
     return x, caches
+
+
+# ---------------------------------------------------------------------------
+def _zamba_forward(p, cfg, x, positions, mode, caches, pos):
+    """The Mamba2 stack in segments split at ``_zamba_attn_positions``;
+    before every segment but the first the shared attention block runs
+    on ``shared_in(cat(hidden, embeddings))``, its own residual stream
+    becoming the hidden state, with a cache of its own per call site.  A
+    Mamba2 block has no input norm and no residual: its output replaces
+    the hidden state.  In decode the segments' stacked states are
+    written in place."""
+    x0 = x
+    bounds = [0] + _zamba_attn_positions(cfg) + [cfg.n_layers]
+    layers = _unstack(p["mamba"])
+    new: dict[str, list] = {"mamba": [], "conv": [], "attn": []}
+
+    def mamba_train(h, p_l):
+        return mamba_mod.mamba_chunked(p_l, h, cfg)
+    mamba_train = _remat(mamba_train, cfg)
+
+    for si in range(len(bounds) - 1):
+        if si > 0:
+            h = linear(p["shared_in"], torch.cat([x, x0], -1))
+            x, c = block_apply(p["shared_attn"], h, cfg, positions,
+                               mode=mode, pos=pos,
+                               cache=caches["attn"][si - 1]
+                               if mode == "decode" else None)
+            new["attn"].append(c)
+        seg = layers[bounds[si]:bounds[si + 1]]
+        if mode == "train":
+            for p_l in seg:
+                x = mamba_train(x, p_l)
+        elif mode == "prefill":
+            sts, css = [], []
+            for p_l in seg:
+                x, st, cs = mamba_mod.mamba_chunked(p_l, x, cfg,
+                                                    return_state=True)
+                sts.append(st)
+                css.append(cs)
+            new["mamba"].append(torch.stack(sts))
+            new["conv"].append(torch.stack(css))
+        else:
+            sts, css = caches["mamba"][si], caches["conv"][si]
+            for i, p_l in enumerate(seg):
+                x, st, cs = mamba_mod.mamba_decode(p_l, x, cfg, sts[i],
+                                                   css[i])
+                sts[i].copy_(st)
+                css[i].copy_(cs)
+            new["mamba"].append(sts)
+            new["conv"].append(css)
+    return x, (None if mode == "train" else new)
+
+
+def _xlstm_forward(p, cfg, x, mode, caches):
+    """Repeats of (slstm_every - 1) stacked mLSTM blocks and one sLSTM
+    block (the mLSTM blocks alone when there is no sLSTM), each block
+    inside a residual.  Caches: ``mlstm`` a list of (C, n, m) stacked over
+    a repeat's layers, ``mconv`` their conv states, ``slstm`` a list of
+    (c, n, m, h); in decode the mLSTM states are written in place."""
+    n_s = _xlstm_slstm_count(cfg)
+    per = (cfg.slstm_every - 1) if n_s else cfg.n_layers
+    n_m = cfg.n_layers - n_s
+    mlayers = _unstack(p["mlstm"])
+    slayers = _unstack(p["slstm"]) if n_s else []
+    new: dict[str, list] = {"mlstm": [], "mconv": [], "slstm": []}
+
+    def mlstm_train(h, p_l):
+        return h + xlstm_mod.mlstm_chunked(p_l, h, cfg)
+    mlstm_train = _remat(mlstm_train, cfg)
+
+    for r in range(n_s if n_s else 1):
+        seg = mlayers[r * per:min((r + 1) * per, n_m)]
+        if mode == "train":
+            for p_l in seg:
+                x = mlstm_train(x, p_l)
+        elif mode == "prefill":
+            sts, css = [], []
+            for p_l in seg:
+                out, st, cs = xlstm_mod.mlstm_chunked(p_l, x, cfg,
+                                                      return_state=True)
+                x = x + out
+                sts.append(st)
+                css.append(cs)
+            new["mlstm"].append(tuple(torch.stack(t) for t in zip(*sts)))
+            new["mconv"].append(torch.stack(css))
+        else:
+            sts, css = caches["mlstm"][r], caches["mconv"][r]
+            for i, p_l in enumerate(seg):
+                out, st, cs = xlstm_mod.mlstm_decode(
+                    p_l, x, cfg, tuple(t[i] for t in sts), css[i])
+                x = x + out
+                for t, t_new in zip(sts, st):
+                    t[i].copy_(t_new)
+                css[i].copy_(cs)
+            new["mlstm"].append(sts)
+            new["mconv"].append(css)
+        if n_s:
+            if mode == "train":
+                x = x + xlstm_mod.slstm_scan(slayers[r], x, cfg)
+                continue
+            state = caches["slstm"][r] if mode == "decode" else None
+            out, st = xlstm_mod.slstm_scan(slayers[r], x, cfg, state=state,
+                                           return_state=True)
+            x = x + out
+            new["slstm"].append(st)
+    return x, (None if mode == "train" else new)

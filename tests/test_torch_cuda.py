@@ -23,7 +23,12 @@ Granite-3.0-1B-A400M ``generate`` on the card and hold their logits
 against the CPU's plain path in bf16; the VLM test serves a reduced
 Qwen2-VL with its vision stub on the card (one flash launch a layer,
 the CPU run's tokens in f32), and the flash kernel is held against its
-plain version at Qwen2-VL-72B's prefill shape (group 8).  The pipeline
+plain version at Qwen2-VL-72B's prefill shape (group 8).  The recurrent
+families serve a reduced Zamba2 (its shared attention block through the
+flash kernel, one launch a call site) and a reduced xLSTM (no kernel) on
+the card, the CPU run's tokens in f32, and the flash kernel is held
+against its plain version at Zamba2-1.2B's prefill shape (D 64, group
+1).  The pipeline
 test runs ``pipeline_step`` on 4 logical devices of the card against
 autograd over the stages in sequence.  The fuzz tests replay a few seeds of the
 differential corpus on the card under the sharded dependence managers
@@ -837,6 +842,58 @@ def test_cuda_flash_attention_at_the_qwen2_vl_prefill_shape(cuda_device):
         got.float(), fa_kernel.flash_attention_plain(q, k, v,
                                                      causal=True).float(),
         rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_at_the_zamba2_prefill_shape(cuda_device):
+    """Zamba2-1.2B's shared attention block at prefill, B 4 x 1,024, Hq =
+    Hkv = 32, D 64, bf16, causal: group 1, so a block holds 64 positions
+    of one head; within the bf16 tolerance of the plain version, in one
+    launch."""
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    q, k, v = (torch.randn((4, 32, 1024, 64), generator=g,
+                           device=cuda_device).to(torch.bfloat16)
+               for _ in range(3))
+    before = fa_kernel.flash_attention.launches
+    got = fa_kernel.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa_kernel.flash_attention.launches == before + 1
+    torch.testing.assert_close(
+        got.float(), fa_kernel.flash_attention_plain(q, k, v,
+                                                     causal=True).float(),
+        rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,overrides", [
+    ("zamba2-1.2b", dict(attn_impl="pallas")),
+    ("xlstm-1.3b", dict(slstm_every=2))])
+def test_cuda_recurrent_generate_matches_the_cpu_run(cuda_device, arch,
+                                                      overrides):
+    """A reduced Zamba2 (12 Mamba2 layers, the shared block before layer
+    6 through the flash kernel) and a reduced xLSTM (2 mLSTM and 2 sLSTM
+    layers) in f32 compute: ``generate`` on the card launches the flash
+    kernel once per shared call site in prefill and never in decode
+    (xLSTM never), and its tokens equal the CPU run's on the same
+    weights."""
+    from repro_torch.models import transformer
+    cfg = configs.get_config(arch).reduced(**overrides)
+    params = api.init_params(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(1))
+    kw = dict(max_new_tokens=4, max_len=64 + 4 + 8)
+    on_cpu = llm_serve.generate(cfg, params, {"tokens": tokens}, **kw)
+    params = params.to(cuda_device)
+    fa_kernel.flash_attention.launches = 0
+    out = llm_serve.generate(cfg, params, {"tokens": tokens.to(cuda_device)},
+                             **kw)
+    torch.cuda.synchronize()
+    want = len(transformer._zamba_attn_positions(cfg)) \
+        if cfg.family == "hybrid" else 0
+    assert fa_kernel.flash_attention.launches == want
+    assert tuple(out.shape) == (2, 4) and out.device.type == "cuda"
+    assert torch.equal(out.cpu(), on_cpu)
 
 
 @pytest.mark.cuda

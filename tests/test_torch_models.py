@@ -35,7 +35,9 @@ from repro_torch.models import api, layers, rope, transformer
 DENSE = ["mistral-nemo-12b", "qwen1.5-4b", "nemotron-4-15b", "command-r-35b"]
 MOE = ["deepseek-v2-lite-16b", "granite-moe-1b-a400m"]     # test_torch_moe
 VLM = ["qwen2-vl-72b"]                                     # test_torch_vlm
-NOT_PORTED = [a for a in configs.ARCH_IDS if a not in DENSE + MOE + VLM]
+RECURRENT = ["zamba2-1.2b", "xlstm-1.3b"]   # test_torch_hybrid, _xlstm
+NOT_PORTED = [a for a in configs.ARCH_IDS
+              if a not in DENSE + MOE + VLM + RECURRENT]
 B, S = 2, 16
 
 

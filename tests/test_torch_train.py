@@ -6,7 +6,10 @@ each dense architecture's ``reduced()`` size (and, for the loss and its
 gradients, each MoE architecture's: drop-free routing, deepseek's MLA
 and leading dense layer) cut to 2 layers, sequence 64, f32 compute, the
 attention in 16-query, 32-key chunks (so the chunked path runs several
-blocks under its checkpoints).  Tolerances,
+blocks under its checkpoints).  The loss and gradients of the recurrent
+families run at their parity tests' sizes (``RECURRENT``): Zamba2's 12
+Mamba2 layers and one shared attention call, four 16-token SSD chunks;
+xLSTM's 2 mLSTM and 2 sLSTM layers.  Tolerances,
 each with its reason:
 
 * the loss: 1e-5 relative (the frameworks sum the softmax, the products
@@ -60,14 +63,20 @@ from repro_torch.optim import adamw_init
 
 DENSE = ["mistral-nemo-12b", "qwen1.5-4b", "nemotron-4-15b", "command-r-35b"]
 MOE = ["deepseek-v2-lite-16b", "granite-moe-1b-a400m"]
+# the recurrent families at their parity tests' sizes, not cut to 2
+# layers: Zamba2's 12 (one shared attention call, at layer 6) and xLSTM's
+# 4 with an sLSTM every second layer (2 layers would have neither)
+RECURRENT = {"zamba2-1.2b": dict(attn_q_chunk=16, attn_k_chunk=32),
+             "xlstm-1.3b": dict(slstm_every=2)}
 B, S = 2, 64
 SMALL = dict(n_layers=2, attn_q_chunk=16, attn_k_chunk=32)
 STEP_KW = dict(peak_lr=1e-2, warmup=1, total_steps=10)
 
 
 def _cfgs(arch, **kw):
-    return (configs.get_config(arch).reduced(**SMALL, **kw),
-            ref_configs.get_config(arch).reduced(**SMALL, **kw))
+    small = RECURRENT.get(arch, SMALL)
+    return (configs.get_config(arch).reduced(**small, **kw),
+            ref_configs.get_config(arch).reduced(**small, **kw))
 
 
 def _tiny(pkg):
@@ -123,7 +132,7 @@ def _reference(arch):
     loss, grads = grad_fn(jp, jnp.asarray(toks[0]))
     out = dict(weights=weights, tokens=toks, loss=float(loss),
                grads=_flat(jax.tree_util.tree_map(np.asarray, grads)))
-    if arch in MOE:
+    if arch in MOE or arch in RECURRENT:
         return out
     _, grads1 = grad_fn(jp, jnp.asarray(toks[1]))
     step = jax.jit(ref_train.build_train_step(ref_cfg, **STEP_KW))
@@ -139,7 +148,7 @@ def _reference(arch):
 
 # ---------------------------------------------------------------------------
 # loss_fn and its gradients
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + list(RECURRENT))
 def test_loss_fn_matches_reference(arch):
     ref = _reference(arch)
     cfg, _ = _cfgs(arch)
@@ -147,7 +156,7 @@ def test_loss_fn_matches_reference(arch):
     np.testing.assert_allclose(loss, ref["loss"], rtol=1e-5)
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + list(RECURRENT))
 def test_grads_match_reference(arch):
     ref = _reference(arch)
     cfg, _ = _cfgs(arch)
