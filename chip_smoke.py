@@ -38,7 +38,11 @@ Phases, each of which must pass (any failure exits non-zero):
    Hkv 8, 1,024 tokens, head dim 64), Qwen2-VL-72B's (B 4, Hq 64,
    Hkv 8, 1,024 tokens, head dim 128: group 8, 8 positions a block) and
    Zamba2-1.2B's shared attention block (B 4, Hq = Hkv = 32, 1,024
-   tokens, head dim 64: group 1, 64 positions a block).  ``bound_ms``
+   tokens, head dim 64: group 1, 64 positions a block) and whisper-tiny
+   at 1,280 frames (B 16, Hq = Hkv = 6, head dim 64, non-causal): its
+   encoder's self-attention (1,280 x 1,280) and its decoder's
+   cross-attention (224 queries over 1,280 frames, the last query tile
+   half full), both also checked in f32 and bf16 at B 2.  ``bound_ms``
    is the least time the card could take: the bytes the function must
    move over 3.35 TB/s or its operations over the peak for their type,
    67 TFLOP/s FP32 or 989 TFLOP/s bf16 on the tensor cores (H100 SXM
@@ -226,10 +230,28 @@ Phases, each of which must pass (any failure exits non-zero):
    difference printed (0: one path).  Also prints one sLSTM layer's
    ``slstm_scan`` over the 1,024-token prompt: its wall (median of 3)
    and its aten ops, the host cost of the per-step loop.
+19. Audio (main path 9): ``launch.serve.generate`` with whisper-tiny at
+   full width and depth (4 encoder and 4 decoder layers, d 384, 6 heads
+   of 64, vocabulary 51,865; 56,443,392 parameters), weights from seed
+   0, bf16 compute over f32 masters: B 16 segments of seeded N(0, 1)
+   frame embeddings (the conv front end's stub), 224-token prompts, 32
+   greedy steps, timed and held as phase 17 holds, the whole model in
+   f32 too.  ``[audio]`` runs the published 1,500 frames under the
+   config's own ``attn_impl="chunked"`` (0 flash launches), after
+   checking that ``"pallas"`` raises the reference's ``ValueError`` at
+   ``prefill_step`` before any launch (1,500 does not split into the
+   kernel's 256-row blocks).  ``[audio_kernel]`` runs 1,280 frames, the
+   largest length <= 1,500 that does, under ``"pallas"``: 12 launches (a
+   layer: the encoder's self-attention, the decoder's causal
+   self-attention and its cross-attention), kernel against chunked
+   held.  Also printed: the aten ops of one decode step, the cache's
+   bytes (self K/V and the encoder output) and the wall of one decode
+   step's cross-attention K/V projections, which the reference
+   recomputes from the encoder output at every step.
 
 Then one JSON line of kernel results (each row's ``launches`` from phase
 4, 5 or 6, and in ``launches_by_path`` those of phases 7, 8, 9, 14, 15,
-17 and 18), the card line again, and last ``{"ok": true, "device":
+17, 18 and 19), the card line again, and last ``{"ok": true, "device":
 {...}}``.
 """
 from __future__ import annotations
@@ -534,7 +556,12 @@ def kernel_phase(dev) -> list[dict]:
                       fa_case(1, 2, 2, 96, 40, 128, dtype, bq=16, bk=8),
                       fa_case(2, 12, 2, 64, 64, 32, dtype),
                       fa_case(1, 4, 2, 100, 164, 128, dtype),
-                      fa_case(2, 32, 8, 256, 256, 128, dtype)]
+                      fa_case(2, 32, 8, 256, 256, 128, dtype),
+                      # whisper-tiny's encoder and cross-attention at a
+                      # small batch: non-causal, G 1, and 224 queries
+                      # whose last 64-row tile is half full
+                      fa_case(2, 6, 6, 1280, 1280, 64, dtype, causal=False),
+                      fa_case(2, 6, 6, 224, 1280, 64, dtype, causal=False)]
     prefill_case = fa_case(4, 32, 8, 1024, 1024, 128, torch.bfloat16)
     rows.append(dict(
         name="flash_attention", rtol=2e-2, atol=2e-2,
@@ -550,6 +577,13 @@ def kernel_phase(dev) -> list[dict]:
         # Zamba2-1.2B's shared attention block at prefill (the hybrid
         # phase): head dim 64, G 1
         zamba2=fa_case(4, 32, 32, 1024, 1024, 64, torch.bfloat16),
+        # whisper-tiny at 1,280 frames (the audio phase): the encoder's
+        # self-attention and the decoder's cross-attention, B 16, G 1,
+        # D 64, non-causal (so SDPA is the same function at Sq != Skv)
+        whisper_enc=fa_case(16, 6, 6, 1280, 1280, 64, torch.bfloat16,
+                            causal=False),
+        whisper_cross=fa_case(16, 6, 6, 224, 1280, 64, torch.bfloat16,
+                              causal=False),
         **prefill_case))
 
     results = []
@@ -614,7 +648,8 @@ def kernel_phase(dev) -> list[dict]:
 
 
 # a kernel row's other shapes and dtypes, each timed beside the row's own
-EXTRA_CASES = ("wide", "bf16", "bf16_wide", "granite", "qwen2_vl", "zamba2")
+EXTRA_CASES = ("wide", "bf16", "bf16_wide", "granite", "qwen2_vl", "zamba2",
+               "whisper_enc", "whisper_cross")
 
 
 def parity_of_black_scholes(dev, gen) -> None:
@@ -2058,6 +2093,154 @@ def recurrent_phase(dev, card: str, tag: str, arch: str) -> int:
     return launches
 
 
+AUDIO_ARCH = "whisper-tiny"
+# B 16 segments of 30 s (1,500 frames) batched for transcription, with
+# 224-token prompts (half of whisper's 448-token text context, the size
+# of its previous-text prompt) and 32 greedy steps
+AUDIO_BATCH, AUDIO_PROMPT, AUDIO_NEW = 16, 224, 32
+# the flash kernel's block contract: min(256, S) divides S.  1,500 frames
+# do not split, so under "pallas" the reference raises there; 1,280
+# frames (25.6 s of audio) is the largest length <= 1,500 that splits
+AUDIO_KERNEL_FRAMES = 1280
+AUDIO_KERNEL_REDUCED = {
+    "encoder_seq": "1500 -> 1280: the largest length ≤ 1500 that the "
+                   "flash kernel's 256-block contract takes; the "
+                   "reference raises at 1500"}
+
+
+def audio_phase(dev, card: str) -> int:
+    """Main path 9: ``launch.serve.generate`` with whisper-tiny at full
+    width and depth (4 encoder and 4 decoder layers, d 384, 6 heads of
+    64; 56,443,392 parameters), bf16 compute over f32 masters, B 16
+    segments of seeded N(0, 1) frame embeddings (the conv front end's
+    stub) with 224-token prompts and 32 greedy steps, timed and held as
+    ``serve_and_hold`` does, the whole model in f32 too.  ``[audio]``:
+    the published 1,500 frames under the config's own
+    ``attn_impl="chunked"``, no flash launch; first, ``"pallas"`` must
+    raise the reference's ``ValueError`` at ``prefill_step`` with no
+    launch.  ``[audio_kernel]``: 1,280 frames under ``"pallas"``, 12
+    launches (per layer the encoder's self-attention, the decoder's
+    causal self-attention and its cross-attention).  Also printed: the
+    aten ops of one decode step, the cache's bytes and the wall of one
+    decode step's cross-attention K/V projections, which the reference
+    recomputes from the encoder output at every step.  Returns the
+    kernel run's launches."""
+    import dataclasses
+    import statistics
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.models import api, transformer
+    from repro_torch.models.layers import linear
+
+    t_phase = time.perf_counter()
+    base = get_config(AUDIO_ARCH)
+    tokens = torch.randint(
+        0, base.vocab_size, (AUDIO_BATCH, AUDIO_PROMPT), dtype=torch.int32,
+        generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    cd = getattr(torch, base.compute_dtype)
+
+    def frames(n):
+        return torch.randn(AUDIO_BATCH, n, base.d_model, device=dev,
+                           generator=torch.Generator(
+                               device=dev).manual_seed(2)).to(cd)
+
+    def wall_ms(fn, reps=5) -> list[float]:
+        fn()
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return walls
+
+    def extra_for(cfg, batch):
+        def extra(params) -> dict:
+            with torch.inference_mode():
+                p = api.prepare(params, cfg)
+                _, caches = api.prefill_step(p, cfg, batch)
+                caches = api.pad_caches(caches,
+                                        AUDIO_PROMPT + AUDIO_NEW + 8)
+                enc_out = caches["enc_out"]
+                kv = caches["self"]
+
+                def step():
+                    api.decode_step(p, cfg, tokens[:, -1:], caches,
+                                    AUDIO_PROMPT)
+
+                layers = transformer._unstack(p["dec_blocks"])
+
+                def projections():
+                    for p_l in layers:
+                        linear(p_l["xattn"]["wk"], enc_out)
+                        linear(p_l["xattn"]["wv"], enc_out)
+
+                proj, dec = wall_ms(projections), wall_ms(step)
+                out = dict(
+                    encoder_seq=cfg.encoder_seq,
+                    encoder_layers=cfg.encoder_layers,
+                    attn_impl=cfg.attn_impl,
+                    cache_bytes=dict(
+                        self_kv=sum(t.numel() * t.element_size()
+                                    for t in kv.values()),
+                        enc_out=enc_out.numel() * enc_out.element_size()),
+                    decode_aten_ops=count_aten_ops(step),
+                    xattn_kv_proj_ms=statistics.median(proj),
+                    xattn_kv_proj_ms_all=proj,
+                    decode_step_ms_same_window=statistics.median(dec))
+                del p, caches, enc_out, kv
+            return out
+        return extra
+
+    # [audio]: the published shape, the config's own chunked attention
+    cfg = base
+    batch = {"tokens": tokens, "enc_frames": frames(cfg.encoder_seq)}
+    print("[audio] reduced: {} (all layers at the published widths, "
+          f"{cfg.encoder_seq} frames)", flush=True)
+    params = api.init_params(torch.Generator(device=dev).manual_seed(0),
+                             cfg, device=dev)
+    fa.flash_attention.launches = 0
+    try:
+        with torch.inference_mode():
+            api.prefill_step(params, dataclasses.replace(
+                cfg, attn_impl="pallas"), batch)
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    want = (f"seq lens ({cfg.encoder_seq}, {cfg.encoder_seq}) not "
+            "divisible by (256, 256)")
+    print(f"[audio] pallas at {cfg.encoder_seq} frames raised: {raised!r} "
+          f"launches={fa.flash_attention.launches}", flush=True)
+    check(raised == want and fa.flash_attention.launches == 0,
+          f"audio: pallas at {cfg.encoder_seq} frames gave {raised!r} "
+          f"after {fa.flash_attention.launches} launches, expected "
+          f"{want!r} before any")
+    del params
+    torch.cuda.empty_cache()
+    serve_and_hold(dev, card, "audio", cfg, batch, AUDIO_NEW,
+                   extra_for(cfg, batch), launches_expected=0,
+                   f32_layers=cfg.n_layers)
+    del batch
+    torch.cuda.empty_cache()
+
+    # [audio_kernel]: 1,280 frames through the flash kernel
+    cfg = dataclasses.replace(base, encoder_seq=AUDIO_KERNEL_FRAMES,
+                              attn_impl="pallas")
+    batch = {"tokens": tokens, "enc_frames": frames(cfg.encoder_seq)}
+    print("[audio_kernel] reduced: " +
+          json.dumps(AUDIO_KERNEL_REDUCED, ensure_ascii=False), flush=True)
+    launches, _ = serve_and_hold(
+        dev, card, "audio_kernel", cfg, batch, AUDIO_NEW,
+        extra_for(cfg, batch),
+        launches_expected=cfg.encoder_layers + 2 * cfg.n_layers,
+        f32_layers=cfg.n_layers)
+    print(f"[audio] phase_wall_s={time.perf_counter() - t_phase}",
+          flush=True)
+    return launches
+
+
 PIPE_ARCH = "mistral-nemo-12b"
 PIPE_STAGES, PIPE_MICRO, PIPE_TOKENS = 4, 8, 1024
 # each stage's weight gradient against autograd over the four blocks in
@@ -2553,6 +2736,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     ssm_launches = recurrent_phase(dev, card, "ssm", SSM_ARCH)
     torch.cuda.empty_cache()
+    audio_launches = audio_phase(dev, card)
+    torch.cuda.empty_cache()
     pipe_phase(dev, card)
     torch.cuda.empty_cache()
     train_phase(dev, card)
@@ -2562,7 +2747,8 @@ def main() -> int:
                "moe": {"flash_attention": moe_launches},
                "vlm": {"flash_attention": vlm_launches},
                "hybrid": {"flash_attention": hybrid_launches},
-               "ssm": {"flash_attention": ssm_launches}}
+               "ssm": {"flash_attention": ssm_launches},
+               "audio": {"flash_attention": audio_launches}}
     sim_phase(dev, central)
     obs_phase(dev)
     for row in kernels:

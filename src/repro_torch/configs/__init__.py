@@ -1,8 +1,10 @@
-"""Architecture registry: ``get_config("<arch-id>")``.
+"""Architecture registry: ``get_config("<arch-id>")`` + ``input_specs``.
 
 A copy of the JAX package's ``repro.configs`` (``base.py`` and the ten
-published configurations are data only), without ``input_specs``, which
-comes with the dry-run tooling.
+published configurations are data only).  ``input_specs`` gives every
+model input of a cell as ``meta`` tensors, the counterpart of the
+reference's ``ShapeDtypeStruct`` stand-ins; it imports the model API
+only when called, so the registry stays data only at import.
 """
 from __future__ import annotations
 
@@ -35,5 +37,29 @@ def get_config(arch_id: str) -> ModelConfig:
     return mod.ARCH
 
 
-__all__ = ["ARCH_IDS", "get_config", "ModelConfig", "ShapeSpec", "SHAPES",
-           "applicable_shapes"]
+def input_specs(cfg: ModelConfig, shape_name: str) -> dict:
+    """Stand-ins for every model input of a cell, tensors on the ``meta``
+    device (shapes and dtypes, nothing allocated):
+
+    * train/prefill -> {"batch": {"tokens", modality stubs...}}
+    * decode        -> {"token", "caches", "pos"}
+    """
+    import torch
+
+    from ..data.pipeline import make_batch_specs
+    from ..models import api
+
+    spec = SHAPES[shape_name]
+    b, s = spec.global_batch, spec.seq_len
+    if spec.kind in ("train", "prefill"):
+        return {"batch": make_batch_specs(cfg, s, b)}
+    # decode: one new token against a seq_len cache
+    return {
+        "token": torch.empty((b, 1), dtype=torch.int32, device="meta"),
+        "caches": api.init_cache(cfg, b, s, device="meta"),
+        "pos": torch.empty((), dtype=torch.int32, device="meta"),
+    }
+
+
+__all__ = ["ARCH_IDS", "get_config", "input_specs", "ModelConfig",
+           "ShapeSpec", "SHAPES", "applicable_shapes"]

@@ -1,5 +1,4 @@
-"""Data pipeline (the JAX package's ``data``; ``make_batch_specs``, the
-dry-run's input stand-ins, comes with ``launch/dryrun.py``)."""
-from .pipeline import SyntheticTokens
+"""Data pipeline (the JAX package's ``data``)."""
+from .pipeline import SyntheticTokens, make_batch_specs
 
-__all__ = ["SyntheticTokens"]
+__all__ = ["SyntheticTokens", "make_batch_specs"]

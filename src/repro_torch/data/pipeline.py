@@ -13,6 +13,8 @@ formula) with the reference's injected bigram structure, so losses fall
 during example training runs.  The reference draws with threefry and
 this pipeline with torch's generator: the same distribution, other
 tokens.  Tokens are drawn on the CPU, whatever device trains on them.
+``make_batch_specs`` gives one training batch's inputs as ``meta``
+tensors (shapes and dtypes only), the reference's dry-run stand-ins.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-__all__ = ["SyntheticTokens"]
+__all__ = ["SyntheticTokens", "make_batch_specs"]
 
 
 @dataclass(frozen=True)
@@ -65,3 +67,23 @@ class SyntheticTokens:
         while True:
             yield self.batch_at(step, **kw)
             step += 1
+
+
+def make_batch_specs(cfg, seq_len: int, global_batch: int) -> dict:
+    """One training batch's inputs as tensors on the ``meta`` device:
+    ``tokens`` (global_batch, seq_len) int32, and in the compute dtype the
+    VLM family's ``vision_embeds`` (global_batch, vision_seq, d_model) and
+    the audio family's ``enc_frames`` (global_batch, encoder_seq,
+    d_model)."""
+    def spec(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    out = {"tokens": spec((global_batch, seq_len), torch.int32)}
+    cd = getattr(torch, cfg.compute_dtype)
+    if cfg.vision_seq:
+        out["vision_embeds"] = spec(
+            (global_batch, cfg.vision_seq, cfg.d_model), cd)
+    if cfg.family == "audio":
+        out["enc_frames"] = spec(
+            (global_batch, cfg.encoder_seq, cfg.d_model), cd)
+    return out

@@ -91,6 +91,11 @@ def main(argv=None):
         batch["vision_embeds"] = torch.zeros(
             args.batch, cfg.vision_seq, cfg.d_model,
             dtype=getattr(torch, cfg.compute_dtype), device=device)
+    if cfg.family == "audio":
+        # the encoder-decoder family's stub: zero frame embeddings
+        batch["enc_frames"] = torch.zeros(
+            args.batch, cfg.encoder_seq, cfg.d_model,
+            dtype=getattr(torch, cfg.compute_dtype), device=device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.perf_counter()

@@ -1,4 +1,4 @@
-"""Model zoo, ported family by family: so far the dense decoder-only
+"""Model zoo, every family of ``configs.ARCH_IDS``: the dense decoder-only
 family (Mistral-NeMo-12B, Qwen1.5-4B, Nemotron-4-15B, Command-R-35B),
 the MoE family (DeepSeek-V2-Lite with MLA attention,
 Granite-3.0-1B-A400M; ``moe.py``, ``mla.py``), the VLM family
@@ -6,7 +6,9 @@ Granite-3.0-1B-A400M; ``moe.py``, ``mla.py``), the VLM family
 precomputed stub spliced over the first positions), the hybrid family
 (Zamba2-1.2B: Mamba2 blocks, ``mamba.py``, and one shared attention
 block) and the ``ssm`` family (xLSTM-1.3B: mLSTM and sLSTM blocks,
-``xlstm.py``).  The encoder-decoder family (whisper) is not ported yet.
+``xlstm.py``) and the encoder-decoder family (whisper-tiny: a
+non-causal encoder over precomputed frame embeddings, the conv front
+end's stub, and a causal decoder with cross-attention).
 
 Parameters live in an ``nn.Module`` tree (``transformer.Decoder``) whose
 block weights are stacked on a leading layer axis; the functions take

@@ -23,8 +23,7 @@ __all__ = ["init_params", "count_params", "prepare", "loss_fn",
 def init_params(generator: torch.Generator, cfg, *, device="cuda"):
     """A ``transformer.Decoder`` on ``device`` with weights drawn from
     ``generator`` (on the same kind of device) in the reference's
-    distribution.  The ``audio`` family raises
-    ``NotImplementedError``."""
+    distribution."""
     return transformer.init_decoder(generator, cfg, device=device)
 
 
@@ -35,9 +34,10 @@ def count_params(params) -> int:
 # the stacked attention segments, cast as the reference's ``_prep_stack``
 # casts them
 STACKS = ("blocks", "dense_blocks", "moe_blocks")
-# the hybrid and ssm families' subtrees: the reference casts none of
-# them ahead; each op casts what it uses to the compute dtype
-CAST_AT_USE = ("mamba", "shared_in", "shared_attn", "mlstm", "slstm")
+# the hybrid, ssm and audio families' subtrees: the reference casts none
+# of them ahead; each op casts what it uses to the compute dtype
+CAST_AT_USE = ("mamba", "shared_in", "shared_attn", "mlstm", "slstm",
+               "enc_blocks", "enc_norm", "dec_blocks")
 # the leaves those ops cast: linear weights and biases, the convs, the
 # mLSTM head projections and skip.  The rest (A_log, dt_bias, D, norm
 # scales and biases, sLSTM's recurrence r) are read in f32.
@@ -56,11 +56,12 @@ def prepare(params, cfg) -> dict:
     segments (``blocks``, ``dense_blocks``, ``moe_blocks``) as
     ``_prep_stack`` casts them: every leaf of rank >= 2 (weights, the
     router and the experts, and the per-layer norm scales and biases,
-    rank 2 once stacked) to ``cfg.compute_dtype``.  The hybrid and
-    ``ssm`` subtrees (``mamba``, ``shared_in``, ``shared_attn``,
-    ``mlstm``, ``slstm``), which the reference never passes through
-    ``_prep_stack``: only the leaves its ops cast where they use them
-    (``_CAST_LEAVES``); ``A_log``, ``dt_bias``, ``D``, the norms and
+    rank 2 once stacked) to ``cfg.compute_dtype``.  The hybrid, ``ssm``
+    and ``audio`` subtrees (``mamba``, ``shared_in``, ``shared_attn``,
+    ``mlstm``, ``slstm``; ``enc_blocks``, ``enc_norm``, ``dec_blocks``),
+    which the reference never passes through ``_prep_stack``: only the
+    leaves its ops cast where they use them (``_CAST_LEAVES``);
+    ``A_log``, ``dt_bias``, ``D``, the norms' scales and biases and
     sLSTM's ``r`` stay the f32 masters.  The output projection
     (``lm_head``, or the tied embedding table transposed) as
     ``logits_out`` casts it.  The embedding table and the final norm
@@ -94,7 +95,8 @@ def _logits_fn(p, cfg):
 # ---------------------------------------------------------------------------
 def loss_fn(params, cfg, batch):
     """batch: {"tokens": (B, S) int, "loss_mask": (B, S) opt,
-    "vision_embeds": (B, nv, d) opt, the VLM family's stub}.  Next-token
+    "vision_embeds": (B, nv, d) opt, the VLM family's stub,
+    "enc_frames": (B, S_enc, d), the audio family's}.  Next-token
     CE (a 0-dim f32 tensor) through the chunked loss: the label of the
     last position is 0 and masked out, ``loss_mask`` multiplies the mask,
     and the first ``cfg.vision_seq`` positions (a vision stub's) carry
@@ -104,7 +106,7 @@ def loss_fn(params, cfg, batch):
     p = prepare(params, cfg)
     hidden, _ = transformer.forward(
         p, cfg, tokens, vision_embeds=batch.get("vision_embeds"),
-        mode="train")
+        enc_frames=batch.get("enc_frames"), mode="train")
     labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], 1)
     mask = torch.cat([torch.ones_like(tokens[:, 1:], dtype=torch.float32),
                       torch.zeros_like(tokens[:, :1], dtype=torch.float32)],
@@ -123,7 +125,7 @@ def forward_logits(params, cfg, batch):
     p = prepare(params, cfg)
     hidden, _ = transformer.forward(
         p, cfg, batch["tokens"], vision_embeds=batch.get("vision_embeds"),
-        mode="train")
+        enc_frames=batch.get("enc_frames"), mode="train")
     return _logits_fn(p, cfg)(hidden)
 
 
@@ -132,7 +134,7 @@ def prefill_step(params, cfg, batch):
     p = prepare(params, cfg)
     hidden, caches = transformer.forward(
         p, cfg, batch["tokens"], vision_embeds=batch.get("vision_embeds"),
-        mode="prefill")
+        enc_frames=batch.get("enc_frames"), mode="prefill")
     return _logits_fn(p, cfg)(hidden[:, -1:]), caches
 
 
@@ -159,7 +161,10 @@ def init_cache(cfg, batch: int, seq_len: int, dtype=None, *, device="cuda"):
     ``attn`` one {"k", "v"} of (B, n_kv_heads, S, head_dim) per shared
     block call site.  For the ``ssm`` family per repeat ``mlstm`` (C, n,
     m) f32 tuples stacked over its layers, ``mconv`` conv states in the
-    compute dtype and ``slstm`` (c, n, m, h) f32 tuples (m at -1e30)."""
+    compute dtype and ``slstm`` (c, n, m, h) f32 tuples (m at -1e30).
+    For the ``audio`` family ``self``, {"k", "v"} of (n_layers, B,
+    n_kv_heads, S, head_dim), and ``enc_out`` (B, encoder_seq,
+    d_model).  ``device="meta"`` gives the shapes and dtypes alone."""
     transformer.require_ported(cfg)
     dt = dtype or transformer._cdtype(cfg)
     b, s = batch, seq_len
@@ -214,6 +219,9 @@ def init_cache(cfg, batch: int, seq_len: int, dtype=None, *, device="cuda"):
                                      neg(b, h, dmh),
                                      zeros(b, h, dmh, dtype=f32)))
         return out
+    if cfg.family == "audio":
+        return {"self": attn_cache(cfg.n_layers),
+                "enc_out": zeros(b, cfg.encoder_seq, cfg.d_model)}
     seg_cache = mla_cache if cfg.mla else attn_cache
     out = {"moe": seg_cache(cfg.n_layers - cfg.first_dense)}
     if cfg.first_dense:

@@ -3,10 +3,10 @@ and decode (KV cache), the JAX package's ``models/attention.py``.
 
 Decode computes attention with plain einsums over the KV cache, as the
 reference does; its sequence-parallel form (``_decode_sp``) comes with
-the sharded mesh layer, and the cross-attention override
-(``kv_override``) with the encoder-decoder family.  The reference's
-``dist`` sharding hooks are no-ops without a mesh and have no
-counterpart.
+the sharded mesh layer.  ``kv_override`` hands in K/V already in head
+layout, the encoder-decoder family's cross-attention over the encoder
+output.  The reference's ``dist`` sharding hooks are no-ops without a
+mesh and have no counterpart.
 """
 from __future__ import annotations
 
@@ -71,9 +71,21 @@ def _qkv(p, x, cfg, positions):
     return q.contiguous(), k.contiguous(), v.contiguous()
 
 
-def attention_train(p, x, cfg, positions, *, causal: bool = True):
-    """Full-sequence attention."""
-    return attention_prefill(p, x, cfg, positions, causal=causal)[0]
+def attention_train(p, x, cfg, positions, *, causal: bool = True,
+                    kv_override=None):
+    """Full-sequence attention.  ``kv_override``: (k, v) already in head
+    layout (the whisper decoder's cross-attention); only q is projected,
+    and position-encoded only under a rotary ``cfg.rope_type``."""
+    if kv_override is None:
+        return attention_prefill(p, x, cfg, positions, causal=causal)[0]
+    q = _split_heads(linear(p["wq"], x), cfg.n_heads, cfg.head_dim)
+    if cfg.rope_type != "none":
+        q, _ = _position_encode(q, q, cfg, positions)
+    k, v = kv_override
+    out = fa_ops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal=causal, impl=cfg.attn_impl,
+                           q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk)
+    return linear(p["wo"], _merge_heads(out))
 
 
 def attention_prefill(p, x, cfg, positions, *, causal: bool = True):
@@ -84,24 +96,33 @@ def attention_prefill(p, x, cfg, positions, *, causal: bool = True):
     return linear(p["wo"], _merge_heads(out)), {"k": k, "v": v}
 
 
-def attention_decode(p, x, cfg, cache, pos: int):
+def attention_decode(p, x, cfg, cache, pos: int, *, kv_override=None):
     """One-token decode.  x: (B, 1, d); cache: {"k","v"} (B, Hkv, S, D);
     pos: the index of this token (the cache holds ``pos`` valid entries
     before the update).  The cache is written in place at ``pos``,
     clamped into range as ``dynamic_update_slice`` clamps its start, and
-    returned."""
+    returned.  With ``kv_override`` (k, v) in head layout no cache is
+    written, every key is valid, and ``cache`` is returned as given."""
     b = x.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q = _split_heads(linear(p["wq"], x), cfg.n_heads, cfg.head_dim)
-    k_new = _split_heads(linear(p["wk"], x), cfg.n_kv_heads, cfg.head_dim)
-    v_new = _split_heads(linear(p["wv"], x), cfg.n_kv_heads, cfg.head_dim)
-    q, k_new = _position_encode(q, k_new, cfg, positions)
-    k, v = cache["k"], cache["v"]
-    s_len = k.shape[2]
-    at = min(max(pos, 0), s_len - 1)
-    k[:, :, at:at + 1] = k_new.to(k.dtype)
-    v[:, :, at:at + 1] = v_new.to(v.dtype)
-    valid = torch.arange(s_len, device=x.device) <= pos          # (S,)
+    if kv_override is None:
+        k_new = _split_heads(linear(p["wk"], x), cfg.n_kv_heads,
+                             cfg.head_dim)
+        v_new = _split_heads(linear(p["wv"], x), cfg.n_kv_heads,
+                             cfg.head_dim)
+        q, k_new = _position_encode(q, k_new, cfg, positions)
+        k, v = cache["k"], cache["v"]
+        s_len = k.shape[2]
+        at = min(max(pos, 0), s_len - 1)
+        k[:, :, at:at + 1] = k_new.to(k.dtype)
+        v[:, :, at:at + 1] = v_new.to(v.dtype)
+        valid = torch.arange(s_len, device=x.device) <= pos      # (S,)
+    else:
+        if cfg.rope_type != "none":
+            q, _ = _position_encode(q, q, cfg, positions)
+        k, v = kv_override
+        valid = torch.ones(k.shape[2], dtype=torch.bool, device=x.device)
 
     # GQA decode: (B, Hq, 1, D) x (B, Hkv, S, D)
     g = cfg.n_heads // cfg.n_kv_heads

@@ -1,5 +1,6 @@
-"""Architecture assembly for the dense, MoE, VLM, hybrid (Zamba2) and
-xLSTM decoder-only families (the JAX package's ``models/transformer.py``).
+"""Architecture assembly for the dense, MoE, VLM, hybrid (Zamba2),
+xLSTM and encoder-decoder (whisper) stacks (the JAX package's
+``models/transformer.py``).
 
 The block parameters are stacked on a leading layer axis, as the
 reference's ``_stack_init`` stacks them, and the reference's ``lax.scan``
@@ -16,11 +17,14 @@ stacked Mamba2 blocks with one shared attention block before each
 segment after the first (:func:`_zamba_forward`); the ``ssm`` family
 (xLSTM) runs repeats of stacked mLSTM blocks each followed by one sLSTM
 block (:func:`_xlstm_forward`).  Their caches are per-segment lists of
-f32 states.  The encoder-decoder family (``audio``) raises
-``NotImplementedError`` naming its ROADMAP item.
+f32 states.  The encoder-decoder family (``audio``, whisper) encodes
+precomputed frame embeddings (``enc_frames``, the conv front end's
+stub) with non-causal blocks and runs a causal decoder whose every
+layer cross-attends to the encoder output (:func:`_whisper_forward`).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any
 
@@ -37,19 +41,17 @@ from . import moe as moe_mod
 from . import xlstm as xlstm_mod
 from .layers import (FFN, Embedding, Linear, Norm, draw, embed, ffn, linear,
                      norm)
+from .rope import sinusoidal_position_at, sinusoidal_positions
 
-PORTED = ("dense", "moe", "vlm", "hybrid", "ssm")
-_NOT_PORTED = {
-    "audio": "ROADMAP queue 1 item 12e (the encoder-decoder family)",
-}
+PORTED = ("dense", "moe", "vlm", "hybrid", "ssm", "audio")
 
 
 def require_ported(cfg) -> None:
-    """Raise ``NotImplementedError`` for a family the port lacks."""
+    """Raise ``NotImplementedError`` for a family the port lacks (every
+    family of ``configs.ARCH_IDS`` is ported)."""
     if cfg.family not in PORTED:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet; see "
-            f"{_NOT_PORTED.get(cfg.family, 'ROADMAP queue 1 item 12')}")
+            f"{cfg.name}: the {cfg.family!r} family is not ported")
 
 
 def _cdtype(cfg) -> torch.dtype:
@@ -85,6 +87,22 @@ def init_block(generator, cfg, *, moe_layer: bool = False,
                device=None) -> Block:
     return draw(Block(cfg, moe_layer=moe_layer, d_ff=d_ff, layers=layers,
                       device=device), generator)
+
+
+class WhisperDecBlock(nn.Module):
+    """``_init_whisper_dec_block``: ln1, attn (causal self-attention),
+    ln_x, xattn (cross-attention to the encoder output), ln2, ffn;
+    stacked on a leading axis of ``layers``."""
+
+    def __init__(self, cfg, *, layers: int | None = None, device=None):
+        super().__init__()
+        kw = dict(layers=layers, device=device)
+        self.ln1 = Norm(cfg.d_model, cfg.norm, **kw)
+        self.attn = attn_mod.Attention(cfg, **kw)
+        self.ln_x = Norm(cfg.d_model, cfg.norm, **kw)
+        self.xattn = attn_mod.Attention(cfg, **kw)
+        self.ln2 = Norm(cfg.d_model, cfg.norm, **kw)
+        self.ffn = FFN(cfg.d_model, cfg.d_ff, cfg.act, **kw)
 
 
 def _block_mix(p, h, cfg, positions, mode, cache, pos):
@@ -160,7 +178,10 @@ class Decoder(nn.Module):
     ``n_layers``, ``shared_in`` (2d -> d) and one unstacked
     ``shared_attn`` block; for the ``ssm`` family, ``mlstm`` stacked over
     the layers that are not sLSTM and ``slstm`` over the
-    ``n_layers // slstm_every`` that are (absent when there are none).
+    ``n_layers // slstm_every`` that are (absent when there are none);
+    for the ``audio`` family, ``enc_blocks`` (blocks without rotary
+    positions) stacked over ``encoder_layers``, ``enc_norm`` and
+    ``dec_blocks`` (``WhisperDecBlock``) stacked over ``n_layers``.
     Its ``state_dict`` keys are the reference's pytree paths joined by
     dots."""
 
@@ -189,6 +210,14 @@ class Decoder(nn.Module):
                                          device=device)
             if n_s:
                 self.slstm = xlstm_mod.SLSTM(cfg, layers=n_s, device=device)
+            return
+        if cfg.family == "audio":
+            self.enc_blocks = Block(dataclasses.replace(cfg,
+                                                        rope_type="none"),
+                                    layers=cfg.encoder_layers, device=device)
+            self.enc_norm = Norm(cfg.d_model, cfg.norm, device=device)
+            self.dec_blocks = WhisperDecBlock(cfg, layers=cfg.n_layers,
+                                              device=device)
             return
         if cfg.first_dense:
             self.dense_blocks = Block(cfg, d_ff=cfg.first_dense_ff,
@@ -254,8 +283,8 @@ def _embed_tokens(p, cfg, tokens, vision_embeds=None):
     return x
 
 
-def forward(p, cfg, tokens, *, vision_embeds=None, mode: str = "train",
-            caches=None, pos=None):
+def forward(p, cfg, tokens, *, vision_embeds=None, enc_frames=None,
+            mode: str = "train", caches=None, pos=None):
     """Unified entry over a parameter tree already cast for compute
     (``api.prepare``).  Returns (hidden, caches):
 
@@ -269,8 +298,15 @@ def forward(p, cfg, tokens, *, vision_embeds=None, mode: str = "train",
     one per segment, or ``{"moe"}`` alone when it has no leading dense
     layer; the hybrid and ``ssm`` families' are ``api.init_cache``'s
     per-segment lists, their stacked states written in place in decode.
+    ``enc_frames`` (B, S_enc, d), the ``audio`` family's precomputed
+    frame embeddings, is encoded in train and prefill; its caches are
+    ``{"self": {"k", "v"}, "enc_out"}``, the encoder output carried into
+    decode.
     """
     require_ported(cfg)
+    if cfg.family == "audio":
+        return _whisper_forward(p, cfg, tokens, enc_frames, mode, caches,
+                                pos)
     x = _embed_tokens(p, cfg, tokens, vision_embeds)
     positions = _positions(tokens.shape, device=tokens.device) \
         if mode != "decode" else None
@@ -463,3 +499,92 @@ def _xlstm_forward(p, cfg, x, mode, caches):
             x = x + out
             new["slstm"].append(st)
     return x, (None if mode == "train" else new)
+
+
+# ---------------------------------------------------------------------------
+def _whisper_forward(p, cfg, tokens, enc_frames, mode, caches, pos):
+    """Encoder-decoder.  ``enc_frames``: (B, S_enc, d) precomputed frame
+    embeddings (the conv front end's stub), encoded in train and prefill;
+    decode reads the encoder output from ``caches["enc_out"]``.  Every
+    decoder layer projects its cross-attention K/V from the encoder
+    output in every mode, decode included, as the reference does.  In
+    decode the self-attention caches are written in place."""
+    cd = _cdtype(cfg)
+    dev = tokens.device
+
+    def enc_layer(h, p_l):
+        a = attn_mod.attention_train(
+            p_l["attn"], norm(p_l["ln1"], h, cfg.norm, cfg.norm_eps), cfg,
+            None, causal=False)
+        h = h + a
+        return h + ffn(p_l["ffn"], norm(p_l["ln2"], h, cfg.norm,
+                                        cfg.norm_eps), cfg.act)
+
+    if mode == "decode":
+        enc_out = caches["enc_out"]
+    else:
+        x = enc_frames.to(cd) + sinusoidal_positions(
+            enc_frames.shape[1], cfg.d_model, device=dev).to(cd)[None]
+        f = _remat(enc_layer, cfg) if mode == "train" else enc_layer
+        for p_l in _unstack(p["enc_blocks"]):
+            x = f(x, p_l)
+        enc_out = norm(p["enc_norm"], x, cfg.norm, cfg.norm_eps)
+
+    x = embed(p["embed"], tokens,
+              scale=cfg.d_model ** 0.5 if cfg.embed_scale else None).to(cd)
+    if mode == "decode":
+        x = x + sinusoidal_position_at(pos, cfg.d_model,
+                                       device=dev).to(cd)[None, None, :]
+    else:
+        x = x + sinusoidal_positions(tokens.shape[1], cfg.d_model,
+                                     device=dev).to(cd)[None]
+
+    def dec_layer(h, p_l, cache=None):
+        hh = norm(p_l["ln1"], h, cfg.norm, cfg.norm_eps)
+        if mode == "train":
+            a, new_self = attn_mod.attention_train(
+                p_l["attn"], hh, cfg, None, causal=True), None
+        elif mode == "prefill":
+            a, new_self = attn_mod.attention_prefill(p_l["attn"], hh, cfg,
+                                                     None, causal=True)
+        else:
+            a, new_self = attn_mod.attention_decode(p_l["attn"], hh, cfg,
+                                                    cache, pos)
+        h = h + a
+        hh = norm(p_l["ln_x"], h, cfg.norm, cfg.norm_eps)
+        # cross-attention against the encoder output
+        k = attn_mod._split_heads(linear(p_l["xattn"]["wk"], enc_out),
+                                  cfg.n_kv_heads, cfg.head_dim)
+        v = attn_mod._split_heads(linear(p_l["xattn"]["wv"], enc_out),
+                                  cfg.n_kv_heads, cfg.head_dim)
+        if mode == "decode":
+            xa, _ = attn_mod.attention_decode(p_l["xattn"], hh, cfg, None,
+                                              pos, kv_override=(k, v))
+        else:
+            xa = attn_mod.attention_train(p_l["xattn"], hh, cfg, None,
+                                          causal=False, kv_override=(k, v))
+        h = h + xa
+        hh = norm(p_l["ln2"], h, cfg.norm, cfg.norm_eps)
+        return h + ffn(p_l["ffn"], hh, cfg.act), new_self
+
+    layers = _unstack(p["dec_blocks"])
+    if mode == "train":
+        f = _remat(lambda h, p_l: dec_layer(h, p_l)[0], cfg)
+        for p_l in layers:
+            x = f(x, p_l)
+        new_caches = None
+    elif mode == "prefill":
+        ks, vs = [], []
+        for p_l in layers:
+            x, c = dec_layer(x, p_l)
+            ks.append(c["k"])
+            vs.append(c["v"])
+        new_caches = {"self": {"k": torch.stack(ks), "v": torch.stack(vs)},
+                      "enc_out": enc_out}
+    else:
+        self_c = caches["self"]
+        for i, p_l in enumerate(layers):
+            x, _ = dec_layer(x, p_l, {"k": self_c["k"][i],
+                                      "v": self_c["v"][i]})
+        new_caches = {"self": self_c, "enc_out": enc_out}
+    return norm(p["final_norm"], x, cfg.norm, cfg.norm_eps), new_caches

@@ -28,7 +28,12 @@ families serve a reduced Zamba2 (its shared attention block through the
 flash kernel, one launch a call site) and a reduced xLSTM (no kernel) on
 the card, the CPU run's tokens in f32, and the flash kernel is held
 against its plain version at Zamba2-1.2B's prefill shape (D 64, group
-1).  The pipeline
+1).  The encoder-decoder family serves a reduced whisper on the card
+(the flash kernel on its encoder, its causal self-attention and its
+cross-attention, the CPU run's tokens in f32), and the flash kernel is
+held against its plain version at whisper-tiny's encoder (non-causal
+1,280 x 1,280) and cross-attention (224 queries over 1,280 frames)
+shapes.  The pipeline
 test runs ``pipeline_step`` on 4 logical devices of the card against
 autograd over the stages in sequence.  The fuzz tests replay a few seeds of the
 differential corpus on the card under the sharded dependence managers
@@ -414,6 +419,8 @@ def test_cuda_serve_lm_on_the_host_executor(cuda_device):
     (1, 6, 1, 50, 70, 128, True, 256, 256),     # group 6, ragged
     (2, 3, 3, 130, 130, 32, False, 256, 256),   # full, ragged, D 32
     (1, 16, 2, 40, 72, 128, True, 256, 256),    # group 8, ragged
+    (1, 6, 6, 224, 1280, 64, False, 256, 256),  # whisper cross, half tile
+    (1, 6, 6, 1280, 1280, 64, False, 256, 256),  # whisper encoder
 ])
 def test_cuda_flash_attention_matches_plain(cuda_device, dtype, b, hq, hkv,
                                             sq, skv, d, causal, bq, bk):
@@ -893,6 +900,56 @@ def test_cuda_recurrent_generate_matches_the_cpu_run(cuda_device, arch,
         if cfg.family == "hybrid" else 0
     assert fa_kernel.flash_attention.launches == want
     assert tuple(out.shape) == (2, 4) and out.device.type == "cuda"
+    assert torch.equal(out.cpu(), on_cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq", [1280, 224])
+def test_cuda_flash_attention_at_the_whisper_shapes(cuda_device, sq):
+    """whisper-tiny at 1,280 frames, B 16, Hq = Hkv = 6, D 64, bf16,
+    non-causal: the encoder's self-attention (Sq 1,280) and the
+    decoder's cross-attention (224 queries over the 1,280 frames, whose
+    last 64-row query tile is half full); within the bf16 tolerance of
+    the plain version, in one launch."""
+    g = torch.Generator(device=cuda_device).manual_seed(10)
+    q, k, v = (torch.randn(s, generator=g, device=cuda_device)
+               .to(torch.bfloat16)
+               for s in ((16, 6, sq, 64), (16, 6, 1280, 64),
+                         (16, 6, 1280, 64)))
+    before = fa_kernel.flash_attention.launches
+    got = fa_kernel.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert fa_kernel.flash_attention.launches == before + 1
+    torch.testing.assert_close(
+        got.float(), fa_kernel.flash_attention_plain(q, k, v,
+                                                     causal=False).float(),
+        rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_whisper_generate_launches_three_times_a_layer(cuda_device):
+    """A reduced whisper (2 encoder, 4 decoder layers, 64 frames) in f32
+    compute under ``attn_impl="pallas"``: prefill launches the kernel
+    once per encoder layer and twice per decoder layer (causal
+    self-attention, cross-attention), 10 in all, decode never; the
+    tokens equal the CPU run's on the same weights and frames."""
+    cfg = configs.get_config("whisper-tiny").reduced(attn_impl="pallas")
+    params = api.init_params(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 32),
+                                     dtype=torch.int32, generator=g),
+             "enc_frames": torch.randn(2, cfg.encoder_seq, cfg.d_model,
+                                       generator=g)}
+    kw = dict(max_new_tokens=4, max_len=32 + 4 + 8)
+    on_cpu = llm_serve.generate(cfg, params, batch, **kw)
+    params = params.to(cuda_device)
+    fa_kernel.flash_attention.launches = 0
+    out = llm_serve.generate(
+        cfg, params, {k: v.to(cuda_device) for k, v in batch.items()}, **kw)
+    torch.cuda.synchronize()
+    assert fa_kernel.flash_attention.launches == \
+        cfg.encoder_layers + 2 * cfg.n_layers == 10
     assert torch.equal(out.cpu(), on_cpu)
 
 

@@ -36,8 +36,6 @@ DENSE = ["mistral-nemo-12b", "qwen1.5-4b", "nemotron-4-15b", "command-r-35b"]
 MOE = ["deepseek-v2-lite-16b", "granite-moe-1b-a400m"]     # test_torch_moe
 VLM = ["qwen2-vl-72b"]                                     # test_torch_vlm
 RECURRENT = ["zamba2-1.2b", "xlstm-1.3b"]   # test_torch_hybrid, _xlstm
-NOT_PORTED = [a for a in configs.ARCH_IDS
-              if a not in DENSE + MOE + VLM + RECURRENT]
 B, S = 2, 16
 
 
@@ -464,17 +462,6 @@ def test_decode_writes_the_cache_in_place_clamped():
     assert out["k"] is k_before
     _close(out["k"], ref_out["k"], 1e-4, "clamped write")
     _close(logits, ref_logits, 1e-4, "clamped decode")
-
-
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_other_families_are_not_ported_yet(arch):
-    cfg = configs.get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.init_params(torch.Generator(), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.init_cache(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.forward({}, cfg, torch.zeros(1, 4, dtype=torch.int32))
 
 
 def test_cpu_model_path_runs_the_plain_kernel_without_counting():

@@ -9,7 +9,9 @@ attention in 16-query, 32-key chunks (so the chunked path runs several
 blocks under its checkpoints).  The loss and gradients of the recurrent
 families run at their parity tests' sizes (``RECURRENT``): Zamba2's 12
 Mamba2 layers and one shared attention call, four 16-token SSD chunks;
-xLSTM's 2 mLSTM and 2 sLSTM layers.  Tolerances,
+xLSTM's 2 mLSTM and 2 sLSTM layers.  Whisper's (``AUDIO``) runs at its
+parity tests' size too, 4 decoder and 2 encoder layers over 64 seeded
+frames (``enc_frames``), in the same 16/32 attention chunks.  Tolerances,
 each with its reason:
 
 * the loss: 1e-5 relative (the frameworks sum the softmax, the products
@@ -68,13 +70,14 @@ MOE = ["deepseek-v2-lite-16b", "granite-moe-1b-a400m"]
 # 4 with an sLSTM every second layer (2 layers would have neither)
 RECURRENT = {"zamba2-1.2b": dict(attn_q_chunk=16, attn_k_chunk=32),
              "xlstm-1.3b": dict(slstm_every=2)}
+AUDIO = {"whisper-tiny": dict(attn_q_chunk=16, attn_k_chunk=32)}
 B, S = 2, 64
 SMALL = dict(n_layers=2, attn_q_chunk=16, attn_k_chunk=32)
 STEP_KW = dict(peak_lr=1e-2, warmup=1, total_steps=10)
 
 
 def _cfgs(arch, **kw):
-    small = RECURRENT.get(arch, SMALL)
+    small = {**RECURRENT, **AUDIO}.get(arch, SMALL)
     return (configs.get_config(arch).reduced(**small, **kw),
             ref_configs.get_config(arch).reduced(**small, **kw))
 
@@ -89,6 +92,16 @@ def _tiny(pkg):
 def _tokens(cfg, seed):
     return np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+
+def _batch(cfg, tokens) -> dict:
+    """{"tokens"} as numpy, with seeded ``enc_frames`` for the audio
+    family."""
+    out = {"tokens": tokens}
+    if cfg.family == "audio":
+        out["enc_frames"] = np.random.default_rng(3).standard_normal(
+            (B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return out
 
 
 def _flat(t, prefix=""):
@@ -108,14 +121,17 @@ def _grads(decoder) -> dict:
 def _port_loss_and_grads(cfg, weights, tokens):
     params = params_from_reference(weights, cfg, device="cpu")
     params.requires_grad_(True)
-    loss = api.loss_fn(params, cfg, {"tokens": torch.from_numpy(tokens)})
+    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg, tokens).items()}
+    loss = api.loss_fn(params, cfg, batch)
     loss.backward()
     return loss.item(), _grads(params)
 
 
 def _grad_fn(ref_cfg):
-    return jax.jit(jax.value_and_grad(lambda p, t: ref_api.loss_fn(
-        p, ref_cfg, {"tokens": t})))
+    grad_fn = jax.jit(jax.value_and_grad(lambda p, b: ref_api.loss_fn(
+        p, ref_cfg, b)))
+    return lambda p, tokens: grad_fn(p, {
+        k: jnp.asarray(v) for k, v in _batch(ref_cfg, tokens).items()})
 
 
 @functools.cache
@@ -129,12 +145,12 @@ def _reference(arch):
     toks = [_tokens(ref_cfg, 1), _tokens(ref_cfg, 2)]
     jp = jax.tree_util.tree_map(jnp.asarray, weights)
     grad_fn = _grad_fn(ref_cfg)
-    loss, grads = grad_fn(jp, jnp.asarray(toks[0]))
+    loss, grads = grad_fn(jp, toks[0])
     out = dict(weights=weights, tokens=toks, loss=float(loss),
                grads=_flat(jax.tree_util.tree_map(np.asarray, grads)))
-    if arch in MOE or arch in RECURRENT:
+    if arch in MOE or arch in RECURRENT or arch in AUDIO:
         return out
-    _, grads1 = grad_fn(jp, jnp.asarray(toks[1]))
+    _, grads1 = grad_fn(jp, toks[1])
     step = jax.jit(ref_train.build_train_step(ref_cfg, **STEP_KW))
     p, opt, metrics = jp, ref_adamw_init(jp), []
     for k in range(3):
@@ -148,7 +164,7 @@ def _reference(arch):
 
 # ---------------------------------------------------------------------------
 # loss_fn and its gradients
-@pytest.mark.parametrize("arch", DENSE + MOE + list(RECURRENT))
+@pytest.mark.parametrize("arch", DENSE + MOE + list(RECURRENT) + list(AUDIO))
 def test_loss_fn_matches_reference(arch):
     ref = _reference(arch)
     cfg, _ = _cfgs(arch)
@@ -156,7 +172,7 @@ def test_loss_fn_matches_reference(arch):
     np.testing.assert_allclose(loss, ref["loss"], rtol=1e-5)
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE + list(RECURRENT))
+@pytest.mark.parametrize("arch", DENSE + MOE + list(RECURRENT) + list(AUDIO))
 def test_grads_match_reference(arch):
     ref = _reference(arch)
     cfg, _ = _cfgs(arch)
