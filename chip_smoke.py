@@ -35,7 +35,8 @@ Phases, each of which must pass (any failure exits non-zero):
    path's shape (Mistral-NeMo-12B's
    GQA width, B 4 x 1,024 tokens, bf16, causal), which is timed, as are
    B 1 x 8,192 tokens, Granite-3.0-1B-A400M's prefill (B 4, Hq 16,
-   Hkv 8, 1,024 tokens, head dim 64), Qwen2-VL-72B's (B 4, Hq 64,
+   Hkv 8, 1,024 tokens, head dim 64) and one position's chunk of it on
+   the (2, 2) mesh of phase 20 (B 2, Hq 8, Hkv 4), Qwen2-VL-72B's (B 4, Hq 64,
    Hkv 8, 1,024 tokens, head dim 128: group 8, 8 positions a block) and
    Zamba2-1.2B's shared attention block (B 4, Hq = Hkv = 32, 1,024
    tokens, head dim 64: group 1, 64 positions a block) and whisper-tiny
@@ -248,11 +249,31 @@ Phases, each of which must pass (any failure exits non-zero):
    bytes (self K/V and the encoder output) and the wall of one decode
    step's cross-attention K/V projections, which the reference
    recomputes from the encoder output at every step.
+20. Mesh (main path 10, run right after phase 14, whose Granite row it
+   prints beside its own): Granite-3.0-1B-A400M at full width and depth
+   on a (data, model) = (2, 2) mesh of 4 logical devices of the card
+   (``MESH_REDUCED``).  ``launch.train.build_train_step`` with in/out
+   shardings under ``fsdp`` (placed f32 masters and AdamW state, bf16
+   compute, chunked attention, remat ``full``; B 4 x S 4,096 from
+   ``SyntheticTokens``, one warm-up and 3 timed steps), then
+   ``launch.serve.generate`` under ``tp`` with ``attn_impl="pallas"``
+   (B 4 x 1,024 + 32, timed as phase 6 times it): the flash kernel once
+   per layer and mesh position on the position's (batch, head) chunk
+   (96 launches, counters zeroed just before and read just after one
+   ``generate``), decode through ``_decode_sp`` over the striped cache.
+   Prints the mesh, the policy, the bytes each logical device holds,
+   the bytes gathered, placed, exchanged by EP and by the stripes'
+   combine, step ms, prefill ms, decode ms and tok/s.  Checks, at full
+   width in f32 with drop-free capacity and 2 layers (B 4 x 1,024): the
+   loss within 1e-5 relative and every gradient leaf within 1e-4 of its
+   largest against no mesh, the prefill logits and 4 decode steps within
+   1e-4; the placed state of the mesh saved and restored with
+   ``shardings=`` onto a (1, 4) mesh, bit for bit.
 
 Then one JSON line of kernel results (each row's ``launches`` from phase
 4, 5 or 6, and in ``launches_by_path`` those of phases 7, 8, 9, 14, 15,
-17, 18 and 19), the card line again, and last ``{"ok": true, "device":
-{...}}``.
+17, 18, 19 and 20), the card line again, and last ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -572,6 +593,9 @@ def kernel_phase(dev) -> list[dict]:
         wide=fa_case(1, 32, 8, 8192, 8192, 128, torch.bfloat16),
         # Granite-3.0-1B-A400M's prefill (the MoE phase): head dim 64, G 2
         granite=fa_case(4, 16, 8, 1024, 1024, 64, torch.bfloat16),
+        # the same on one position of the (2, 2) mesh (the mesh phase):
+        # its (batch, head) chunk, B 2, Hq 8, Hkv 4
+        granite_mesh=fa_case(2, 8, 4, 1024, 1024, 64, torch.bfloat16),
         # Qwen2-VL-72B's prefill (the VLM phase): head dim 128, G 8
         qwen2_vl=fa_case(4, 64, 8, 1024, 1024, 128, torch.bfloat16),
         # Zamba2-1.2B's shared attention block at prefill (the hybrid
@@ -648,8 +672,8 @@ def kernel_phase(dev) -> list[dict]:
 
 
 # a kernel row's other shapes and dtypes, each timed beside the row's own
-EXTRA_CASES = ("wide", "bf16", "bf16_wide", "granite", "qwen2_vl", "zamba2",
-               "whisper_enc", "whisper_cross")
+EXTRA_CASES = ("wide", "bf16", "bf16_wide", "granite", "granite_mesh",
+               "qwen2_vl", "zamba2", "whisper_enc", "whisper_cross")
 
 
 def parity_of_black_scholes(dev, gen) -> None:
@@ -1810,7 +1834,7 @@ def moe_phase(dev, card: str) -> int:
     layers) and Granite-3.0-1B-A400M (GQA, all 24 layers, prefill
     through the flash-attention kernel), B 4 x 1,024 tokens and 32
     greedy steps each; then the f32 exactness and EP checks.  Returns
-    Granite's flash-attention launches."""
+    Granite's flash-attention launches and its printed row."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
@@ -1890,7 +1914,397 @@ def moe_phase(dev, card: str) -> int:
     check(exact["ep_exchanged_bytes"] == exact["ep_expected_bytes"],
           f"moe: EP exchanged {exact['ep_exchanged_bytes']} bytes, "
           f"expected {exact['ep_expected_bytes']}")
-    return g["flash_attention_launches"]
+    return g["flash_attention_launches"], g
+
+
+# the model under a mesh: Granite-3.0-1B-A400M whole on a (data, model)
+# = (2, 2) mesh of 4 logical devices of the card
+MESH_SHAPE, MESH_AXES = (2, 2), ("data", "model")
+MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 4, 4096   # train_4k's length
+MESH_TRAIN_TIMED = 3                         # after one warm-up step
+MESH_REDUCED = {
+    "global_batch": "256 -> 4 (train_4k's batch, by memory: f32 masters, "
+                    "AdamW moments and gradients placed on one card, "
+                    "plus the gathered compute copy)",
+    "devices": "4 logical devices of one card (a (2, 2) mesh)",
+}
+# f32, drop-free (capacity E/k: each position's capacity counts its own
+# tokens, so at 1.25 the mesh and the whole batch drop different
+# choices): 2 layers, B 4 x 1,024, the mesh against no mesh.  The same
+# f32 operations in other orders (the gathered parameters, attention per
+# position, the stripes' log-sum-exp merge, chunks of the global norm):
+# the loss within 1e-5 relative, each gradient leaf within 1e-4 of its
+# largest element (the CPU parity tests' rule), the logits within 1e-4.
+MESH_EXACT_LAYERS, MESH_EXACT_BATCH, MESH_EXACT_SEQ = 2, 4, 1024
+MESH_LOSS_RTOL, MESH_GRAD_OF_MAX, MESH_LOGIT_TOL = 1e-5, 1e-4, 1e-4
+
+
+def logical_mesh(dev, shape):
+    from repro_torch import dist
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh(shape, MESH_AXES,
+                     dist.logical_devices(math.prod(shape), dev))
+
+
+def mesh_counters(reset: bool = False) -> dict:
+    """The mesh path's byte counters and the flash launches (zeroed with
+    ``reset``)."""
+    from repro_torch import dist
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.models import attention, moe
+    owners = {"gathered_bytes": (dist.gather, "copied_bytes"),
+              "placed_bytes": (dist.device_put, "copied_bytes"),
+              "ep_exchanged_bytes": (moe.moe_ffn_ep, "exchanged_bytes"),
+              "sp_combine_bytes": (attention.combine_stripes,
+                                   "exchanged_bytes"),
+              "flash_attention_launches": (fa.flash_attention, "launches")}
+    if reset:
+        for obj, attr in owners.values():
+            setattr(obj, attr, 0)
+    return {k: getattr(obj, attr) for k, (obj, attr) in owners.items()}
+
+
+def mesh_train(dev, card: str, mesh) -> dict:
+    """``launch.train.build_train_step``: Granite at full width and
+    depth, bf16 over f32 masters, chunked attention, remat ``full``, B 4
+    x S 4,096; one warm-up and 3 timed steps, then one profiled.  On the
+    mesh under ``fsdp`` with in/out shardings; with ``mesh`` None the
+    same steps on the ``Decoder`` with no mesh, the twin to read it
+    beside."""
+    import contextlib
+    import dataclasses
+    import statistics
+    import torch
+    from repro_torch import dist
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.dist import sharding
+    from repro_torch.launch import train
+    from repro_torch.models import api
+    from repro_torch.optim import adamw_init
+
+    cfg = dataclasses.replace(get_config(GRANITE_ARCH), attn_impl="chunked",
+                              remat=True, remat_policy="full")
+    data = SyntheticTokens(cfg.vocab_size, MESH_TRAIN_SEQ, MESH_TRAIN_BATCH,
+                           seed=0)
+    kw = dict(peak_lr=3e-4, warmup=100, total_steps=10_000)
+    with (dist.use_mesh(mesh) if mesh is not None
+          else contextlib.nullcontext()) as ctx:
+        params = api.init_params(
+            torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+        n_params = api.count_params(params)
+        if ctx is not None:
+            p_sh = sharding.param_shardings(cfg, params, ctx, policy="fsdp")
+            o_sh = sharding.opt_state_shardings(p_sh, ctx)
+            params = dist.device_put(params, p_sh)
+            torch.cuda.empty_cache()
+            b_sh = sharding.batch_shardings(
+                cfg, {"tokens": data.batch_at(0)["tokens"]}, ctx)
+            kw.update(in_shardings=(p_sh, o_sh, b_sh, None),
+                      out_shardings=(p_sh, o_sh, None))
+        opt = adamw_init(params)
+        held = dist.bytes_by_device((params, opt))
+        step_fn = train.build_train_step(cfg, **kw)
+
+        def run(step):
+            nonlocal params, opt
+            batch = {"tokens": data.batch_at(step)["tokens"].to(dev)}
+            params, opt, m = step_fn(params, opt, batch, step)
+            return m
+
+        run(0)                                     # warm-up; lr(0) = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mesh_counters(reset=True)
+        ms, metrics = [], []
+        for step in range(1, MESH_TRAIN_TIMED + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = run(step)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: float(v) for k, v in m.items()})
+        counts = mesh_counters()
+        peak = torch.cuda.max_memory_allocated()
+        span = "mesh/train_step" if mesh is not None else \
+            "mesh/train_step_no_mesh"
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            with torch.profiler.record_function(span):
+                run(MESH_TRAIN_TIMED + 1)
+                torch.cuda.synchronize()
+        t = trace_summary(prof, span, top_n=10)
+        del params, opt, prof
+    torch.cuda.empty_cache()
+    step_ms = statistics.median(ms)
+    per_step = {k: v / MESH_TRAIN_TIMED for k, v in counts.items()}
+    row = dict(card=card, arch=GRANITE_ARCH, mode="train",
+               mesh=None if mesh is None else dict(zip(MESH_AXES,
+                                                       MESH_SHAPE)),
+               policy=None if mesh is None else "fsdp",
+               n_layers=cfg.n_layers, compute_dtype=cfg.compute_dtype,
+               attn_impl=cfg.attn_impl, remat=cfg.remat_policy,
+               batch=MESH_TRAIN_BATCH, seq=MESH_TRAIN_SEQ, params=n_params,
+               bytes_by_device=held, step_ms=step_ms, step_ms_all=ms,
+               tok_per_s=MESH_TRAIN_BATCH * MESH_TRAIN_SEQ / (step_ms / 1e3),
+               peak_memory_bytes=peak,
+               gathered_bytes_per_step=per_step["gathered_bytes"],
+               placed_bytes_per_step=per_step["placed_bytes"],
+               ep_exchanged_bytes_per_step=per_step["ep_exchanged_bytes"],
+               flash_attention_launches=counts["flash_attention_launches"],
+               loss=[m["loss"] for m in metrics],
+               gnorm=[m["gnorm"] for m in metrics],
+               profiled_window_s=t["window_s"], device_busy_ms=t["busy_ms"],
+               idle_share=t["idle"],
+               top_ops_ms=[[name[:40], ms_, n] for name, ms_, n in t["top"]],
+               top_kernels_ms=[[name[:70], ms_, n]
+                               for name, ms_, n in t["top_kernels"]])
+    print("[mesh] " + json.dumps(row), flush=True)
+    check(all(math.isfinite(m["loss"]) and math.isfinite(m["gnorm"]) and
+              m["gnorm"] > 0 for m in metrics),
+          "mesh train: a loss or gnorm is not finite, or a gnorm is 0")
+    if mesh is not None:
+        check(per_step["gathered_bytes"] >= 4 * n_params,
+              "mesh train: a step gathered fewer bytes than the parameters")
+    check(counts["flash_attention_launches"] == 0,
+          "mesh train: the flash kernel launched in training")
+    return row
+
+
+def mesh_serve(dev, card: str, mesh, granite: dict) -> dict:
+    """``launch.serve.generate`` under the mesh, ``tp`` placement (the
+    reference's serving rule), ``attn_impl="pallas"``: Granite at full
+    width and depth, B 4 x 1,024 + 32, beside the no-mesh run of
+    ``[moe]`` (``granite``); one more ``generate`` counts the flash
+    launches (one per layer and mesh position) and the bytes."""
+    import dataclasses
+    import torch
+    from repro_torch import dist
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+
+    cfg = dataclasses.replace(get_config(GRANITE_ARCH), attn_impl="pallas")
+    tokens = torch.randint(
+        0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT), dtype=torch.int32,
+        generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    batch = {"tokens": tokens}
+    with dist.use_mesh(mesh) as ctx:
+        decoder = api.init_params(
+            torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+        params = dist.device_put(decoder, sharding.param_shardings(
+            cfg, decoder, ctx, policy="tp"))
+        del decoder
+        torch.cuda.empty_cache()
+        held = dist.bytes_by_device(params)
+        r = serve_timed(cfg, params, batch, MOE_NEW, "mesh/generate")
+        mesh_counters(reset=True)
+        with torch.inference_mode():
+            out = serve.generate(cfg, params, batch, max_new_tokens=MOE_NEW,
+                                 max_len=MOE_PROMPT + MOE_NEW + 8)
+            torch.cuda.synchronize()
+        counts = mesh_counters()
+        del params
+    torch.cuda.empty_cache()
+    positions = math.prod(MESH_SHAPE)
+    row = dict(card=card, arch=GRANITE_ARCH, mode="serve",
+               mesh=dict(zip(MESH_AXES, MESH_SHAPE)), policy="tp",
+               attn_impl=cfg.attn_impl, n_layers=cfg.n_layers,
+               batch=MOE_BATCH, prompt=MOE_PROMPT, new_tokens=MOE_NEW,
+               bytes_by_device=held,
+               **serve_numbers(r), counted_generate=counts,
+               no_mesh=dict((k, granite[k]) for k in (
+                   "prefill_ms", "decode_ms_per_step", "tok_per_s",
+                   "peak_memory_bytes", "idle_share")))
+    print("[mesh] " + json.dumps(row), flush=True)
+    check(tuple(out.shape) == (MOE_BATCH, MOE_NEW),
+          "mesh serve: tokens out of shape")
+    want = cfg.n_layers * positions
+    check(r["launches"] == want and
+          counts["flash_attention_launches"] == want,
+          f"mesh serve: {r['launches']} and "
+          f"{counts['flash_attention_launches']} flash launches, expected "
+          f"{want} (one per layer and mesh position)")
+    check(counts["sp_combine_bytes"] > 0 and counts["ep_exchanged_bytes"] > 0,
+          "mesh serve: no stripe combine or EP exchange counted")
+    return row
+
+
+def mesh_exactness(dev, mesh) -> dict:
+    """At full width in f32 (TF32 off, as ``main`` sets it), 2 layers, B
+    4 x 1,024, drop-free: the loss and every gradient under ``fsdp`` on
+    the mesh against no mesh (chunked attention); the prefill logits
+    through the f32 flash kernel per position and 4 decode steps through
+    ``_decode_sp`` under ``tp`` against no mesh; then the placed
+    parameters and AdamW state of the mesh saved and restored with
+    ``shardings=`` onto a (1, 4) mesh, bit for bit."""
+    import dataclasses
+    import torch
+    from repro_torch import dist
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding
+    from repro_torch.models import api
+    from repro_torch.models.transformer import tree
+
+    base = get_config(GRANITE_ARCH)
+    cfg = dataclasses.replace(
+        base, n_layers=MESH_EXACT_LAYERS, compute_dtype="float32",
+        moe_capacity_factor=base.n_experts / base.top_k,
+        attn_impl="chunked")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (MESH_EXACT_BATCH, MESH_EXACT_SEQ + 4),
+                           dtype=torch.int32, generator=gen, device=dev)
+    prompt, nxt = tokens[:, :MESH_EXACT_SEQ], tokens[:, MESH_EXACT_SEQ:]
+    decoder = api.init_params(torch.Generator(device=dev).manual_seed(0),
+                              cfg, device=dev)
+    out = {}
+    decoder.requires_grad_(True)
+    loss0 = api.loss_fn(decoder, cfg, {"tokens": prompt})
+    loss0.backward()
+    grads0 = {k: v.grad.detach().clone() for k, v in _flat_tree(
+        tree(decoder)).items()}
+    decoder.zero_grad(set_to_none=True)
+    decoder.requires_grad_(False)
+    with dist.use_mesh(mesh) as ctx:
+        p_sh = sharding.param_shardings(cfg, decoder, ctx, policy="fsdp")
+        placed = dist.device_put(decoder, p_sh)
+        for x in dist.placed_leaves(placed):
+            for t in x.shards.values():
+                t.requires_grad_(True)
+        loss1 = api.loss_fn(placed, cfg, {"tokens": prompt})
+        loss1.backward()
+        gap = 0.0
+        for name, x in _flat_tree(placed).items():
+            g1 = dist.gather(x.map(lambda t: t.grad)).detach()
+            g0 = grads0[name]
+            gap = max(gap, ((g1 - g0).abs().max() /
+                            g0.abs().max().clamp(min=1e-30)).item())
+        for x in dist.placed_leaves(placed):
+            for t in x.shards.values():
+                t.grad = None
+                t.requires_grad_(False)
+    out["loss_rel_gap"] = abs(loss1.item() - loss0.item()) / abs(loss0.item())
+    out["grad_gap_of_max"] = gap
+    del grads0, placed
+
+    pallas = dataclasses.replace(cfg, attn_impl="pallas")
+    max_len = MESH_EXACT_SEQ + 8
+
+    def serve_logits(params):
+        with torch.inference_mode():
+            p = api.prepare(params, pallas)
+            logits, caches = api.prefill_step(p, pallas, {"tokens": prompt})
+            caches = api.pad_caches(caches, max_len)
+            steps = [logits]
+            for i in range(nxt.shape[1]):
+                logits, caches = api.decode_step(p, pallas, nxt[:, i:i + 1],
+                                                 caches, MESH_EXACT_SEQ + i)
+                steps.append(logits)
+        return steps
+
+    want = serve_logits(decoder)
+    with dist.use_mesh(mesh) as ctx:
+        mesh_counters(reset=True)
+        got = serve_logits(dist.device_put(decoder, sharding.param_shardings(
+            cfg, decoder, ctx, policy="tp")))
+        launches = mesh_counters()["flash_attention_launches"]
+    out["prefill_logits_gap"] = (got[0] - want[0]).abs().max().item()
+    out["decode_logits_gap"] = max((a - b).abs().max().item()
+                                   for a, b in zip(got[1:], want[1:]))
+    out["flash_launches"] = launches
+
+    # the mesh's placed parameters and AdamW state, restored onto (1, 4)
+    out["restore_onto_1x4_bit_equal"] = mesh_restore_equal(
+        cfg, decoder, mesh, logical_mesh(dev, (1, 4)),
+        ROOT / "build" / "mesh_ckpt")
+    del decoder
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_restore_equal(cfg, decoder, mesh, other, ckpt) -> bool:
+    """Whether ``decoder``'s parameters and a fresh AdamW state, placed by
+    ``fsdp`` on ``mesh`` and saved to ``ckpt``, restore with
+    ``shardings=`` onto the mesh ``other`` bit for bit, every leaf laid
+    out on ``other``."""
+    import shutil
+    import torch
+    from repro_torch import dist
+    from repro_torch.ckpt import restore_checkpoint, save_checkpoint
+    from repro_torch.dist import sharding
+    from repro_torch.optim import adamw_init
+
+    shutil.rmtree(ckpt, ignore_errors=True)
+    with dist.use_mesh(mesh) as ctx:
+        placed = dist.device_put(decoder, sharding.param_shardings(
+            cfg, decoder, ctx, policy="fsdp"))
+        state = (placed, adamw_init(placed))
+        save_checkpoint(str(ckpt), 1, state)
+    with dist.use_mesh(other) as ctx:
+        p_sh = sharding.param_shardings(cfg, decoder, ctx, policy="fsdp")
+        restored, _, _ = restore_checkpoint(
+            str(ckpt), 1, (decoder, adamw_init(decoder)),
+            shardings=(p_sh, sharding.opt_state_shardings(p_sh, ctx)))
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    def by_name(params, opt):
+        out = {"step": opt.step}
+        for name, tree_ in (("p", params), ("mu", opt.mu), ("nu", opt.nu)):
+            out.update({f"{name}.{k}": v
+                        for k, v in _flat_tree(tree_).items()})
+        return out
+
+    saved, got = by_name(*state), by_name(*restored)
+    same = saved.keys() == got.keys() and all(
+        torch.equal(dist.gather(saved[k]), dist.gather(got[k]))
+        for k in saved)
+    return same and all(isinstance(x, dist.Placed) and
+                        x.sharding.mesh is other for x in got.values())
+
+
+def _flat_tree(t, prefix=""):
+    out = {}
+    for k, v in t.items():
+        if isinstance(v, dict):
+            out.update(_flat_tree(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def mesh_phase(dev, card: str, granite: dict) -> int:
+    """The model under a mesh: Granite-3.0-1B-A400M whole on a (2, 2)
+    mesh of 4 logical devices of the card, trained (``fsdp``) and served
+    (``tp``) through the normal entry points, then held in f32 against
+    no mesh.  Returns the flash launches of one ``generate``."""
+    import torch
+    print(f"[mesh] reduced: {json.dumps(MESH_REDUCED, ensure_ascii=False)}",
+          flush=True)
+    mesh = logical_mesh(dev, MESH_SHAPE)
+    mesh_train(dev, card, mesh)
+    mesh_train(dev, card, None)
+    torch.cuda.empty_cache()
+    row = mesh_serve(dev, card, mesh, granite)
+    exact = mesh_exactness(dev, mesh)
+    print("[mesh] " + json.dumps(dict(exactness=exact, tolerances=dict(
+        loss_rtol=MESH_LOSS_RTOL, grad_gap_of_max=MESH_GRAD_OF_MAX,
+        logits=MESH_LOGIT_TOL))), flush=True)
+    check(exact["loss_rel_gap"] <= MESH_LOSS_RTOL,
+          f"mesh f32: loss gap {exact['loss_rel_gap']}")
+    check(exact["grad_gap_of_max"] <= MESH_GRAD_OF_MAX,
+          f"mesh f32: gradient gap {exact['grad_gap_of_max']}")
+    check(exact["prefill_logits_gap"] <= MESH_LOGIT_TOL,
+          f"mesh f32: prefill logits gap {exact['prefill_logits_gap']}")
+    check(exact["decode_logits_gap"] <= MESH_LOGIT_TOL,
+          f"mesh f32: decode logits gap {exact['decode_logits_gap']}")
+    check(exact["flash_launches"] == MESH_EXACT_LAYERS * math.prod(MESH_SHAPE),
+          f"mesh f32: {exact['flash_launches']} flash launches")
+    check(exact["restore_onto_1x4_bit_equal"],
+          "mesh: restore with shardings= onto (1, 4) is not the saved state")
+    return row["flash_attention_launches"]
 
 
 VLM_ARCH, VLM_LAYERS = "qwen2-vl-72b", 8
@@ -2728,7 +3142,9 @@ def main() -> int:
     launches["flash_decode"] = serve_phase(dev)
     launches["flash_attention"] = llm_phase(dev, card)
     torch.cuda.empty_cache()
-    moe_launches = moe_phase(dev, card)
+    moe_launches, granite = moe_phase(dev, card)
+    torch.cuda.empty_cache()
+    mesh_launches = mesh_phase(dev, card, granite)
     torch.cuda.empty_cache()
     vlm_launches = vlm_phase(dev, card)
     torch.cuda.empty_cache()
@@ -2745,6 +3161,7 @@ def main() -> int:
                "sharded": sharded_phase(dev, central),
                "fuzz": {"matmul_batched": fuzz_phase(dev)},
                "moe": {"flash_attention": moe_launches},
+               "mesh": {"flash_attention": mesh_launches},
                "vlm": {"flash_attention": vlm_launches},
                "hybrid": {"flash_attention": hybrid_launches},
                "ssm": {"flash_attention": ssm_launches},

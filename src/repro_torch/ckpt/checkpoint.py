@@ -22,9 +22,11 @@ each leaf is named by the reference's ``jax.tree_util`` path string
 are snapshotted to host memory synchronously (one device-to-host copy
 each), then written by daemon threads when ``async_save``.  ``np.save``
 and ``np.savez`` store raw npy records: the round trip is bit-identical.
-Placing restored leaves by sharding rules (the reference's
-``shardings=``) waits for the training mesh hooks (ROADMAP queue 1 item
-12).
+A placed leaf (``dist.Placed``, the trainer under a mesh) is saved
+gathered, as the reference's ``np.asarray`` gathers a sharded array, so
+the files do not depend on the mesh; ``restore_checkpoint(...,
+shardings=)`` places each restored leaf by a tree of shardings, onto any
+mesh (elastic restore).
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import dist
 from ..core.blocks import dtype_name
 from ..models.transformer import tree as param_tree
 
@@ -46,29 +49,43 @@ __all__ = ["save_checkpoint", "latest_step", "restore_checkpoint",
            "save_tiles", "latest_epoch", "restore_tiles"]
 
 
-def _leaves_with_paths(node, prefix: str = "") -> list[tuple[str, Any]]:
-    """(path, leaf) pairs in ``jax.tree_util``'s order and notation."""
+def _map_with_paths(fn, node, prefix: str = ""):
+    """``fn(path, leaf)`` over a tree, each leaf named by its
+    ``jax.tree_util`` path string and visited in ``jax.tree_util``'s
+    order (dict keys sorted); rebuilt with the same containers and key
+    order, a module as its parameter tree, None kept as an empty
+    subtree."""
     def sub(key: str) -> str:
         return f"{prefix}/{key}" if prefix else key
 
     if node is None:
-        return []
+        return None
     if isinstance(node, nn.Module):
         node = param_tree(node)
     if isinstance(node, tuple) and hasattr(node, "_fields"):
-        return [pair for name in node._fields
-                for pair in _leaves_with_paths(getattr(node, name),
-                                               sub(f".{name}"))]
+        return type(node)(*(_map_with_paths(fn, getattr(node, name),
+                                            sub(f".{name}"))
+                            for name in node._fields))
     if isinstance(node, (tuple, list)):
-        return [pair for i, child in enumerate(node)
-                for pair in _leaves_with_paths(child, sub(f"[{i}]"))]
+        return type(node)(_map_with_paths(fn, child, sub(f"[{i}]"))
+                          for i, child in enumerate(node))
     if isinstance(node, dict):
-        return [pair for key in sorted(node)
-                for pair in _leaves_with_paths(node[key], sub(f"[{key!r}]"))]
-    return [(prefix, node)]
+        done = {key: _map_with_paths(fn, node[key], sub(f"[{key!r}]"))
+                for key in sorted(node)}
+        return {key: done[key] for key in node}
+    return fn(prefix, node)
+
+
+def _leaves_with_paths(node) -> list[tuple[str, Any]]:
+    """(path, leaf) pairs in ``jax.tree_util``'s order and notation."""
+    pairs: list = []
+    _map_with_paths(lambda path, leaf: pairs.append((path, leaf)), node)
+    return pairs
 
 
 def _to_host(leaf) -> np.ndarray:
+    if isinstance(leaf, dist.Placed):
+        return dist.gather(leaf).detach().cpu().numpy()
     if isinstance(leaf, torch.Tensor):
         # a copy, so the writer never reads a tensor training updates
         return leaf.detach().to("cpu", copy=True).numpy()
@@ -126,11 +143,17 @@ def latest_step(directory: str) -> int | None:
 
 
 @torch.no_grad()
-def restore_checkpoint(directory: str, step: int, like_tree):
+def restore_checkpoint(directory: str, step: int, like_tree, *,
+                       shardings=None):
     """Restore into ``like_tree``: every tensor leaf (a ``Decoder``'s
     parameters among them) is filled in place, cast to its dtype on its
-    device.  Raises on a missing, extra or misshapen leaf.  Returns
-    ``(like_tree, meta, step)``."""
+    device, a placed leaf chunk by chunk.  With ``shardings``, a tree
+    matching ``like_tree`` leaf for leaf (``NamedSharding`` leaves, the
+    ``dist.sharding`` rules' trees), nothing is filled: each leaf is
+    restored in ``like_tree``'s dtype and placed by its sharding (a
+    ``Decoder`` becomes its placed parameter tree), on any mesh.  Raises
+    on a missing, extra or misshapen leaf.  Returns ``(tree, meta,
+    step)``."""
     src = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(src, "manifest.json")) as f:
         manifest = json.load(f)
@@ -142,15 +165,30 @@ def restore_checkpoint(directory: str, step: int, like_tree):
         extra = set(by_path) - paths
         raise ValueError(f"checkpoint/tree mismatch: missing="
                          f"{sorted(missing)[:4]} extra={sorted(extra)[:4]}")
-    for p, like in pairs:
-        if not isinstance(like, torch.Tensor):
+    def load(p, like):
+        if not isinstance(like, (torch.Tensor, dist.Placed)):
             raise TypeError(f"{p}: restore fills tensors in place, got "
                             f"{type(like).__name__}")
         arr = np.load(os.path.join(src, by_path[p]["file"]))
         if tuple(arr.shape) != tuple(like.shape):
             raise ValueError(f"{p}: shape {arr.shape} != "
                              f"{tuple(like.shape)}")
-        like.copy_(torch.from_numpy(arr))
+        return torch.from_numpy(arr).to(like.dtype)
+
+    if shardings is not None:
+        sh = dict(_leaves_with_paths(shardings))
+        if set(sh) != paths:
+            raise ValueError("shardings do not match the tree leaf for leaf")
+        return (_map_with_paths(lambda p, like: dist.device_put(
+            load(p, like), sh[p]), like_tree), manifest["meta"],
+            manifest["step"])
+    for p, like in pairs:
+        arr = load(p, like)
+        if isinstance(like, dist.Placed):
+            for dev, chunk in like.shards.items():
+                chunk.copy_(arr[like.index[dev]])
+        else:
+            like.copy_(arr)
     return like_tree, manifest["meta"], manifest["step"]
 
 

@@ -21,9 +21,16 @@ group.  The pieces the runtime reads:
 * :func:`use_mesh` / :func:`current` — install / read the ambient
   :class:`~repro_torch.dist.context.MeshContext`;
   :func:`single_device_mesh` — the smallest mesh.
-
-The reference's ``constrain_seq``/``constrain_heads`` come with the
-model-parallel training path (ROADMAP.md queue 1 item 12).
+* :class:`Placed`, :func:`device_put`, :func:`gather` — a tensor laid out
+  over a mesh as one chunk per device (``dist.placed``).
+* :func:`constrain_seq` / :func:`constrain_heads` — the model's two
+  hooks, with the reference's divisibility guards: each returns the spec
+  it imposes (None without a mesh or where no axis divides), leaves the
+  value as it is, and appends ``(kind, shape, spec)`` to every recorder
+  :func:`record_constraints` has open.  The attention runs once per mesh
+  position on the chunk ``constrain_heads``' spec gives it
+  (``models.attention``); :func:`place` is the pin that lays a value out
+  by a spec (the stacked experts, ``models.api.prepare``).
 """
 from __future__ import annotations
 
@@ -37,11 +44,16 @@ import torch
 
 from .context import MeshContext
 from . import sharding  # noqa: F401
+from .placed import (Placed, bytes_by_device, device_put, gather,  # noqa
+                     map_placed, placed_leaves, reshard)
 
 __all__ = ["MeshContext", "use_mesh", "current", "sharding",
            "single_device_mesh", "LogicalDevice", "logical_devices",
            "local_devices", "default_device", "Mesh", "PartitionSpec",
-           "NamedSharding"]
+           "NamedSharding", "Placed", "device_put", "gather", "reshard",
+           "bytes_by_device", "placed_leaves", "map_placed",
+           "constrain_seq", "constrain_heads", "place",
+           "record_constraints", "use_context"]
 
 _state = threading.local()
 
@@ -231,11 +243,18 @@ def single_device_mesh(axis: str = "data", device=None) -> Mesh:
     return Mesh([default_device(device)], (axis,))
 
 
-@contextlib.contextmanager
 def use_mesh(mesh, **ctx_kw):
     """Activate ``mesh`` (with axis roles per ``MeshContext``) for the
     dynamic extent of the block; yields the context."""
-    ctx = MeshContext(mesh, **ctx_kw)
+    return use_context(MeshContext(mesh, **ctx_kw))
+
+
+@contextlib.contextmanager
+def use_context(ctx: MeshContext | None):
+    """Install ``ctx`` (a context :func:`current` returned, None for no
+    mesh) on this thread for the block: the context is per thread, and
+    the autograd engine runs a CUDA backward pass, a checkpoint's
+    recompute included, on a thread of its own."""
     stack = getattr(_state, "stack", None)
     if stack is None:
         stack = _state.stack = []
@@ -244,3 +263,76 @@ def use_mesh(mesh, **ctx_kw):
         yield ctx
     finally:
         stack.pop()
+
+
+# ---------------------------------------------------------------------------
+# the model's sharding hooks
+@contextlib.contextmanager
+def record_constraints():
+    """Collect ``(kind, shape, spec)`` for every constraint the hooks
+    impose inside the block (kind ``"seq"``, ``"heads"`` or ``"pin"``);
+    yields the list."""
+    stack = getattr(_state, "recorders", None)
+    if stack is None:
+        stack = _state.recorders = []
+    log: list = []
+    stack.append(log)
+    try:
+        yield log
+    finally:
+        stack.remove(log)
+
+
+def _record(kind: str, shape, spec) -> None:
+    for log in getattr(_state, "recorders", ()):
+        log.append((kind, tuple(shape), spec))
+
+
+def _constrain(kind, x, spec_builder):
+    ctx = current()
+    if ctx is None:
+        return None
+    spec = spec_builder(ctx, tuple(x.shape))
+    if spec is not None:
+        _record(kind, x.shape, spec)
+    return spec
+
+
+def constrain_seq(x):
+    """(B, S, d) activations: batch over the full batch axes.  Returns the
+    spec (or None)."""
+    def build(ctx, shape):
+        if len(shape) < 2:
+            return None
+        if shape[0] % ctx.full_batch_size() != 0:
+            return None
+        return PartitionSpec(ctx.batch_axes_full,
+                             *([None] * (len(shape) - 1)))
+    return _constrain("seq", x, build)
+
+
+def constrain_heads(x):
+    """(B, H, S, D) attention tensors: heads over the model axis, batch
+    over the data axes.  Returns the spec (or None)."""
+    def build(ctx, shape):
+        if len(shape) != 4 or ctx.model_in_batch:
+            return None
+        b = ctx.all_data_axes if shape[0] % ctx.dp_size() == 0 else None
+        m = ctx.model_axis \
+            if shape[1] % ctx.axis_size(ctx.model_axis) == 0 else None
+        if b is None and m is None:
+            return None
+        return PartitionSpec(b, m, None, None)
+    return _constrain("heads", x, build)
+
+
+def place(x, spec):
+    """``x`` placed by ``spec`` over the ambient mesh (recorded as a
+    ``"pin"``): the counterpart of ``with_sharding_constraint`` where the
+    layout is kept, not left to a compiler.  Raises without a mesh."""
+    ctx = current()
+    if ctx is None:
+        raise RuntimeError("dist.place needs an ambient mesh (use_mesh)")
+    spec = PartitionSpec(*spec)
+    _record("pin", x.shape, spec)
+    return device_put(x, NamedSharding(ctx.mesh, spec))

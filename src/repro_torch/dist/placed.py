@@ -1,0 +1,262 @@
+"""Placed leaves: a tensor laid out over a mesh, one tensor per device.
+
+The counterpart of a sharded ``jax.Array``.  A :class:`Placed` holds a
+``NamedSharding`` and, for every logical device of its mesh, the chunk of
+the full tensor that ``sharding.devices_indices_map(shape)`` gives that
+device, on the device's torch device.  Every chunk is its own storage,
+replicas included: on one card the logical devices of a mesh hold their
+chunks side by side, so the bytes a device holds
+(:func:`bytes_by_device`) are the mesh's memory story.
+
+:func:`device_put` places a tree of tensors (or numpy arrays, or placed
+leaves on another layout) by a tree of shardings; :func:`gather` puts a
+placed leaf back together as one tensor on the torch device of the mesh's
+first device.  Both copy, and count the bytes they copy
+(``device_put.copied_bytes``, ``gather.copied_bytes``).  :func:`gather`
+differentiates: its backward pass hands every device the chunk of the
+gradient at its index (the reduce-scatter of an FSDP step), replicas
+included.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+__all__ = ["Placed", "device_put", "gather", "reshard", "bytes_by_device",
+           "placed_leaves", "map_placed"]
+
+
+class Placed:
+    """A tensor of ``shape`` laid out by ``sharding``: ``shards`` maps each
+    :class:`~repro_torch.dist.LogicalDevice` of the mesh, in
+    ``mesh.devices.flat`` order, to its chunk."""
+
+    __slots__ = ("sharding", "shape", "shards", "_index")
+
+    def __init__(self, sharding, shape, shards: dict):
+        self.sharding = sharding
+        self.shape = torch.Size(shape)
+        self.shards = shards
+        self._index = None
+
+    @property
+    def index(self) -> dict:
+        """Each device's index into the full tensor (a tuple of slices)."""
+        if self._index is None:
+            self._index = self.sharding.devices_indices_map(tuple(self.shape))
+        return self._index
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return next(iter(self.shards.values())).dtype
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def numel(self) -> int:
+        return math.prod(self.shape)
+
+    def element_size(self) -> int:
+        return next(iter(self.shards.values())).element_size()
+
+    def distinct(self) -> list:
+        """``(index, device)`` for the first device holding each distinct
+        chunk, in ``mesh.devices.flat`` order."""
+        seen, out = set(), []
+        for dev, idx in self.index.items():
+            key = tuple((s.start, s.stop) for s in _norm(idx, self.shape))
+            if key not in seen:
+                seen.add(key)
+                out.append((idx, dev))
+        return out
+
+    def laid_out_as(self, sharding) -> bool:
+        """Whether ``sharding`` gives every device this leaf's index."""
+        want = sharding.devices_indices_map(tuple(self.shape))
+        return want.keys() == self.index.keys() and all(
+            _norm(want[d], self.shape) == _norm(i, self.shape)
+            for d, i in self.index.items())
+
+    def __getitem__(self, i: int) -> "Placed":
+        """Entry ``i`` of a leading dimension the sharding leaves whole
+        (a stacked layer): each device's chunk is a view of its own."""
+        from . import NamedSharding, PartitionSpec
+        spec = tuple(self.sharding.spec) + (None,) * (self.ndim - len(
+            self.sharding.spec))
+        if not isinstance(i, int) or spec[0] is not None:
+            raise IndexError(f"a placed leaf indexes by an int along an "
+                             f"unsplit leading dimension (spec {spec})")
+        return Placed(NamedSharding(self.sharding.mesh,
+                                    PartitionSpec(*spec[1:])),
+                      self.shape[1:],
+                      {d: t[i] for d, t in self.shards.items()})
+
+    def unbind(self, dim: int = 0) -> list:
+        if dim != 0:
+            raise ValueError("a placed leaf unbinds along dim 0 only")
+        return [self[i] for i in range(self.shape[0])]
+
+    def map(self, fn) -> "Placed":
+        """``fn`` over every chunk (which must keep the chunk's shape)."""
+        return Placed(self.sharding, self.shape,
+                      {d: fn(t) for d, t in self.shards.items()})
+
+    def __repr__(self) -> str:
+        return (f"Placed({tuple(self.shape)}, {self.dtype}, "
+                f"{self.sharding.spec}, {len(self.shards)} devices)")
+
+
+def _norm(index, shape) -> tuple:
+    """``index`` with every slice's start and stop made explicit."""
+    return tuple(slice(*s.indices(n)[:2]) for s, n in zip(index, shape))
+
+
+def _map(fn, tree):
+    """``fn(leaf)`` over a tree (``sharding._map_with_path``'s), a module
+    read as the nested dicts of its parameters."""
+    from .sharding import _as_tree, _map_with_path
+    return _map_with_path(lambda _, x: fn(x), _as_tree(tree))
+
+
+def _at(tree, path):
+    """The subtree of ``tree`` at ``path``, or the leaf that stands for
+    the whole subtree there."""
+    for key in path:
+        if not isinstance(tree, (dict, list, tuple)):
+            break
+        tree = tree[key]
+    return tree
+
+
+def placed_leaves(tree) -> list:
+    """The placed leaves of a tree, in walk order."""
+    out = []
+    _map(lambda x: out.append(x) if isinstance(x, Placed) else None, tree)
+    return out
+
+
+def map_placed(fn, tree):
+    """``fn`` over the placed leaves of a tree, the other leaves kept."""
+    return _map(lambda x: fn(x) if isinstance(x, Placed) else x, tree)
+
+
+def _place_one(x, sharding) -> Placed:
+    """One leaf placed: a chunk copy (``clone``) per device."""
+    if isinstance(x, Placed):
+        if x.sharding == sharding:
+            return x
+        return reshard(x, sharding)
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(np.asarray(x))
+    index = sharding.devices_indices_map(tuple(x.shape))
+    shards = {}
+    for dev, idx in index.items():
+        part = x[idx]
+        shards[dev] = torch.empty(part.shape, dtype=x.dtype,
+                                  device=dev.torch_device).copy_(part)
+        device_put.copied_bytes += part.numel() * part.element_size()
+    return Placed(sharding, x.shape, shards)
+
+
+def device_put(tree, shardings):
+    """``tree`` with every leaf placed by the matching leaf of
+    ``shardings`` (or by ``shardings`` itself when it is one
+    ``NamedSharding``): a tree of :class:`Placed`.  A leaf already placed
+    by that sharding is returned as it is; one placed otherwise is
+    resharded (:func:`reshard`).  Differentiable."""
+    from .sharding import _as_tree, _map_with_path
+    shardings = _as_tree(shardings)
+    return _map_with_path(lambda path, x: _place_one(x, _at(shardings, path)),
+                          _as_tree(tree))
+
+
+device_put.copied_bytes = 0
+
+
+def _overlap(a, b):
+    """The intersection of two normalized indices, or None."""
+    out = []
+    for sa, sb in zip(a, b):
+        lo, hi = max(sa.start, sb.start), min(sa.stop, sb.stop)
+        if lo >= hi:
+            return None
+        out.append(slice(lo, hi))
+    return tuple(out)
+
+
+def reshard(x: Placed, sharding, shape=None) -> Placed:
+    """``x`` laid out by ``sharding`` over a tensor of ``shape`` (``x``'s
+    by default; a larger one is zero past ``x``'s extent, which is how
+    ``api.pad_caches`` grows a striped cache): each device's chunk is
+    assembled from the overlapping parts of ``x``'s distinct chunks, with
+    no full tensor made.  The bytes copied count in
+    ``device_put.copied_bytes``."""
+    shape = torch.Size(x.shape if shape is None else shape)
+    if len(shape) != x.ndim or any(n < m for n, m in zip(shape, x.shape)):
+        raise ValueError(f"cannot reshard {tuple(x.shape)} to "
+                         f"{tuple(shape)}")
+    src = [(_norm(idx, x.shape), x.shards[dev]) for idx, dev in x.distinct()]
+    shards = {}
+    for dev, idx in sharding.devices_indices_map(tuple(shape)).items():
+        idx = _norm(idx, shape)
+        chunk = torch.zeros([s.stop - s.start for s in idx], dtype=x.dtype,
+                            device=dev.torch_device)
+        for sidx, t in src:
+            ov = _overlap(idx, sidx)
+            if ov is None:
+                continue
+            dst = tuple(slice(o.start - d.start, o.stop - d.start)
+                        for o, d in zip(ov, idx))
+            part = t[tuple(slice(o.start - s.start, o.stop - s.start)
+                           for o, s in zip(ov, sidx))]
+            chunk[dst] = part.to(dev.torch_device)
+            device_put.copied_bytes += part.numel() * part.element_size()
+        shards[dev] = chunk
+    return Placed(sharding, shape, shards)
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather forward, and in backward each device's chunk of the
+    gradient (replicas each get their own copy)."""
+
+    @staticmethod
+    def forward(ctx, placed, *chunks):
+        ctx.placed = placed
+        first = placed.sharding.mesh.devices.flat[0].torch_device
+        out = torch.empty(placed.shape, dtype=placed.dtype, device=first)
+        for idx, dev in placed.distinct():
+            out[idx] = placed.shards[dev].to(first)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        placed = ctx.placed
+        return (None,) + tuple(
+            grad[placed.index[dev]].to(dev.torch_device, copy=True)
+            for dev in placed.shards)
+
+
+def gather(x):
+    """A placed leaf as one tensor on the torch device of its mesh's
+    first device (each distinct chunk copied once; the bytes of the full
+    tensor count in ``gather.copied_bytes``); any other leaf as it is."""
+    if not isinstance(x, Placed):
+        return x
+    gather.copied_bytes += x.numel() * x.element_size()
+    return _Gather.apply(x, *x.shards.values())
+
+
+gather.copied_bytes = 0
+
+
+def bytes_by_device(tree) -> dict[int, int]:
+    """The bytes each logical device holds in the placed leaves of
+    ``tree``, by device id."""
+    out: dict[int, int] = {}
+    for x in placed_leaves(tree):
+        for dev, t in x.shards.items():
+            out[dev.id] = out.get(dev.id, 0) + t.numel() * t.element_size()
+    return dict(sorted(out.items()))

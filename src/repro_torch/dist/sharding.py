@@ -16,8 +16,10 @@ on any mesh shape without per-architecture special cases (the qwen
   every layer for nothing.
 * ``replicated`` — everything everywhere (tiny configs, tests).
 
-Nothing in the port places tensors by these rules yet: the launchers
-that do (``launch/dryrun.py``, training) are ROADMAP.md queue 1 item 12.
+``dist.device_put`` places a tree by them: the trainer's parameters and
+AdamW state (:func:`opt_state_shardings`, the layout the reference's
+``dryrun.lower_cell`` builds), the serving caches (``models.api``), a
+restored checkpoint (``ckpt.restore_checkpoint(shardings=)``).
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ import torch
 from .context import MeshContext
 
 __all__ = ["default_policy", "param_shardings", "batch_shardings",
-           "cache_shardings"]
+           "cache_shardings", "opt_state_shardings"]
 
 POLICIES = ("fsdp", "tp", "replicated")
 
@@ -75,11 +77,14 @@ def _as_tree(tree):
 
 
 def _map_with_path(fn, tree, path=()):
-    """``fn(path, leaf)`` over nested dicts, lists and tuples; the path
-    holds dict keys and sequence indices."""
+    """``fn(path, leaf)`` over nested dicts, lists, tuples and named
+    tuples; the path holds dict keys and sequence indices."""
     if isinstance(tree, dict):
         return {k: _map_with_path(fn, v, path + (k,))
                 for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_with_path(fn, v, path + (i,))
+                            for i, v in enumerate(tree)))
     if isinstance(tree, (list, tuple)):
         return type(tree)(_map_with_path(fn, v, path + (i,))
                           for i, v in enumerate(tree))
@@ -129,6 +134,15 @@ def param_shardings(cfg, params, ctx: MeshContext, *,
     return _map_with_path(one, _as_tree(params))
 
 
+def opt_state_shardings(param_sh, ctx: MeshContext):
+    """The ``AdamWState`` layout of the reference's ``dryrun.lower_cell``:
+    the step replicated, mu and nu laid out like the parameters."""
+    from ..optim.adamw import AdamWState
+    from . import NamedSharding, PartitionSpec as P
+    return AdamWState(step=NamedSharding(ctx.mesh, P()), mu=param_sh,
+                      nu=param_sh)
+
+
 def batch_shardings(cfg, batch, ctx: MeshContext):
     """Shard every batch leaf's leading dim over the full batch axes."""
     from . import NamedSharding, PartitionSpec as P
@@ -151,6 +165,12 @@ def batch_shardings(cfg, batch, ctx: MeshContext):
 _SEQ_CACHE_KEYS = ("k", "v", "c_kv", "k_rope")
 
 
+def _cache_key(path) -> str:
+    """A cache leaf's name: the nearest dict key on its path (a list of
+    per-call-site caches is walked through)."""
+    return next((p for p in reversed(path) if isinstance(p, str)), "")
+
+
 def cache_shardings(cfg, caches, ctx: MeshContext):
     """KV caches: batch over the data axes, sequence striped over the
     model axis (the runtime's memory-controller striping applied to the
@@ -168,7 +188,7 @@ def cache_shardings(cfg, caches, ctx: MeshContext):
     def one(path, leaf):
         shape = tuple(getattr(leaf, "shape", ()))
         spec = [None] * len(shape)
-        key = next((p for p in reversed(path) if isinstance(p, str)), "")
+        key = _cache_key(path)
         if key in _SEQ_CACHE_KEYS and len(shape) >= 3:
             # (B, H, S, D) per layer or (L, B, H, S, D) stacked; the batch
             # dim sits 3 ranks left of the trailing (S, D) pair for k/v

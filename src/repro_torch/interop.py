@@ -10,7 +10,10 @@ pytree of numpy arrays
 (``jax.tree_util.tree_map(np.asarray, params)``), and an AdamW state as
 the reference's ``AdamWState`` mapped the same way (or any object with
 ``step``, ``mu`` and ``nu``).  The parity tests build both packages'
-inputs through these functions.
+inputs through these functions.  Onto a mesh, place what they return:
+``dist.device_put(params_from_reference(tree, cfg, device),
+dist.sharding.param_shardings(cfg, decoder, ctx))`` gives the placed
+tree the trainer and the server take.
 """
 from __future__ import annotations
 

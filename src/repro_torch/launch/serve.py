@@ -6,6 +6,10 @@ processed in fixed batches — prefill fills the arena, then greedy or
 sampled decode steps run until length.  Generation runs under
 ``torch.inference_mode()``, and the compute-dtype copy of the weights is
 made once per :func:`generate` call (``api.prepare``), not per token.
+Under ``dist.use_mesh`` it takes the parameters placed (``dist.device_put``
+by ``dist.sharding``'s rules; ``tp`` is the reference's serving rule):
+``prepare`` gathers them once, the caches are placed and decode runs the
+sequence-parallel ``_decode_sp``.
 
 Run it on the card, or on the CPU with the kernels' plain versions::
 

@@ -6,6 +6,14 @@ its gradient (``loss.backward()`` into the f32 masters), global-norm
 clip, cosine LR, AdamW.  Fault tolerance: checkpoint every
 ``ckpt_every`` steps (async), deterministic data skip-ahead on restart.
 
+Under a mesh the step takes placed parameters and AdamW state
+(``dist.device_put`` by ``dist.sharding``'s rules; ``in_shardings``
+places them, as the reference's ``jax.jit(step, in_shardings=...)``
+does): the loss gathers the parameters for compute (the FSDP
+all-gather, counted in ``dist.gather.copied_bytes``), the gradient
+reaches each device's chunk (the reduce-scatter), and each device
+updates its own chunks; ``out_shardings`` places the results.
+
 Run it on the card, or on the CPU::
 
     PYTHONPATH=src python -m repro_torch.launch.train \
@@ -18,6 +26,7 @@ import time
 
 import torch
 
+from .. import dist
 from ..ckpt import latest_step, restore_checkpoint, save_checkpoint
 from ..configs import get_config
 from ..data import SyntheticTokens
@@ -31,26 +40,58 @@ __all__ = ["build_train_step", "train_loop", "main"]
 
 def build_train_step(cfg, *, peak_lr: float = 3e-4, warmup: int = 100,
                      total_steps: int = 10_000, clip: float = 1.0,
-                     weight_decay: float = 0.1):
+                     weight_decay: float = 0.1, in_shardings=None,
+                     out_shardings=None):
     """``train_step(params, opt_state, batch, step) -> (params, opt_state,
-    metrics)``: ``params`` a ``Decoder``, updated in place with its
-    ``opt_state`` (``optim.AdamWState``); ``metrics`` holds the loss, the
-    global gradient norm before clipping and the learning rate, as 0-dim
-    f32 tensors (read them only where the host needs them: each read
-    waits for the device)."""
-    def train_step(params, opt_state, batch, step):
+    metrics)``: ``params`` a ``Decoder`` or a tree of placed masters,
+    updated in place with its ``opt_state`` (``optim.AdamWState``);
+    ``metrics`` holds the loss, the global gradient norm before clipping
+    and the learning rate, as 0-dim f32 tensors (read them only where
+    the host needs them: each read waits for the device).
+    ``in_shardings`` ``(params, opt_state, batch, step)`` places those
+    inputs first (a leaf already so placed is not copied; the step's is
+    unused: it is a host int) and ``out_shardings`` ``(params,
+    opt_state, metrics)`` the outputs (None leaves one as it is), the
+    counterpart of the reference's ``jax.jit(step, in_shardings=(p_sh,
+    o_sh, b_sh, repl), out_shardings=(p_sh, o_sh, None))``."""
+    def grads_of(params, batch):
+        if isinstance(params, dict):
+            shards = [t for x in dist.placed_leaves(params)
+                      for t in x.shards.values()]
+            for t in shards:
+                t.requires_grad_(True)
+            loss = api.loss_fn(params, cfg, batch)
+            loss.backward()
+            grads = dist.map_placed(
+                lambda x: x.map(lambda t: t.grad), params)
+            for t in shards:
+                t.grad = None
+                t.requires_grad_(False)
+            return loss, grads
         params.requires_grad_(True)
         loss = api.loss_fn(params, cfg, batch)
         loss.backward()
-        grads = tree_map(lambda p: p.grad, tree(params))
+        return loss, tree_map(lambda p: p.grad, tree(params))
+
+    def train_step(params, opt_state, batch, step):
+        if in_shardings is not None:
+            params, opt_state, batch = (
+                x if sh is None else dist.device_put(x, sh)
+                for x, sh in zip((params, opt_state, batch), in_shardings))
+        loss, grads = grads_of(params, batch)
         grads, gnorm = clip_by_global_norm(grads, clip)
         lr = cosine_schedule(step, peak_lr=peak_lr, warmup_steps=warmup,
                              total_steps=total_steps)
         params, opt_state = adamw_update(grads, opt_state, params, lr=lr,
                                          weight_decay=weight_decay)
-        params.zero_grad(set_to_none=True)
+        if not isinstance(params, dict):
+            params.zero_grad(set_to_none=True)
         metrics = {"loss": loss.detach(), "gnorm": gnorm, "lr": lr}
-        return params, opt_state, metrics
+        out = (params, opt_state, metrics)
+        if out_shardings is not None:
+            out = tuple(x if sh is None else dist.device_put(x, sh)
+                        for x, sh in zip(out, out_shardings))
+        return out
     return train_step
 
 

@@ -7,17 +7,29 @@ does at every forward, or as the tree :func:`prepare` made once, which
 ``launch.serve.generate`` hands to every step so the cast is not
 repeated per token.  :func:`loss_fn` casts inside the autograd graph,
 so the f32 masters receive the gradients (``launch.train``).
+
+Under a mesh (``repro_torch.dist``) the parameters may also be a tree of
+placed f32 masters (``dist.device_put`` by ``dist.sharding``'s rules):
+:func:`prepare` gathers them for compute, and the gathered bytes count
+in ``dist.gather.copied_bytes``; in training the gradients flow back to
+every device's chunk.  The caches that :func:`prefill_step` and
+:func:`init_cache` return under a mesh are placed by
+``cache_shardings`` (batch over the data axes, sequence over
+``model``), :func:`pad_caches` grows them stripe by stripe, and decode
+writes them in place, never gathered.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import dist
+from ..dist import sharding as dist_sharding
 from . import transformer
 from .layers import cross_entropy_loss, logits_out
 
 __all__ = ["init_params", "count_params", "prepare", "loss_fn",
            "forward_logits", "prefill_step", "decode_step", "init_cache",
-           "transformer_cache_tree", "pad_caches"]
+           "transformer_cache_tree", "pad_caches", "place_caches"]
 
 
 def init_params(generator: torch.Generator, cfg, *, device="cuda"):
@@ -44,6 +56,11 @@ CAST_AT_USE = ("mamba", "shared_in", "shared_attn", "mlstm", "slstm",
 _CAST_LEAVES = ("w", "b", "conv_w", "conv_b", "wq", "wk", "wv", "skip")
 
 
+# the stacked experts ``_prep_stack`` pins to the EP layout under a mesh,
+# in the order it visits them (dict keys sorted)
+_EXPERTS = ("down", "gate", "up")
+
+
 def _cast_at_use(t, cd):
     return {k: _cast_at_use(v, cd) if isinstance(v, dict)
             else (v.to(cd) if k in _CAST_LEAVES else v)
@@ -65,11 +82,23 @@ def prepare(params, cfg) -> dict:
     sLSTM's ``r`` stay the f32 masters.  The output projection
     (``lm_head``, or the tied embedding table transposed) as
     ``logits_out`` casts it.  The embedding table and the final norm
-    stay f32.  A no-op copy-free tree in f32 compute."""
+    stay f32.  A no-op copy-free tree in f32 compute.
+
+    ``params`` is a ``Decoder``, a tree of placed masters (every leaf a
+    ``dist.Placed``: each gathered, the bytes counted) or a tree this
+    function made (returned as it is).  Under a mesh, as the reference's
+    ``_prep_stack`` pins them, the stacked experts of ``moe_blocks``
+    (``gate``, ``up``, ``down``, (L, E, ...)) are then placed by
+    ``P(None, model, None, None)`` (``model`` only where it divides E):
+    each device holds its own experts for ``moe_ffn_ep``."""
     if isinstance(params, dict):
-        return params
+        leaves = transformer.tree_leaves(params)
+        if not all(isinstance(t, dist.Placed) for t in leaves):
+            return params
+        params = transformer.tree_map(dist.gather, params)
     cd = transformer._cdtype(cfg)
-    p = transformer.tree(params)
+    p = transformer.tree(params) if not isinstance(params, dict) \
+        else params
     for name in STACKS:
         if name in p:
             p[name] = transformer.tree_map(
@@ -80,6 +109,14 @@ def prepare(params, cfg) -> dict:
             p[name] = _cast_at_use(p[name], cd)
     head = p["embed"]["table"].T if cfg.tie_embeddings else p["lm_head"]["w"]
     p["lm_head"] = {"w": head.to(cd)}
+    ctx = dist.current()
+    if ctx is not None and "moe" in p.get("moe_blocks", {}):
+        experts = p["moe_blocks"]["moe"]
+        for name in _EXPERTS:
+            e = experts[name].shape[1]
+            m = ctx.model_axis \
+                if e % ctx.axis_size(ctx.model_axis) == 0 else None
+            experts[name] = dist.place(experts[name], (None, m, None, None))
     return p
 
 
@@ -102,17 +139,17 @@ def loss_fn(params, cfg, batch):
     and the first ``cfg.vision_seq`` positions (a vision stub's) carry
     no label.  Differentiate it with ``loss.backward()`` after
     ``params.requires_grad_(True)``."""
-    tokens = batch["tokens"]
+    tokens = dist.gather(batch["tokens"])
     p = prepare(params, cfg)
     hidden, _ = transformer.forward(
-        p, cfg, tokens, vision_embeds=batch.get("vision_embeds"),
-        enc_frames=batch.get("enc_frames"), mode="train")
+        p, cfg, tokens, vision_embeds=dist.gather(batch.get("vision_embeds")),
+        enc_frames=dist.gather(batch.get("enc_frames")), mode="train")
     labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], 1)
     mask = torch.cat([torch.ones_like(tokens[:, 1:], dtype=torch.float32),
                       torch.zeros_like(tokens[:, :1], dtype=torch.float32)],
                      1)
     if batch.get("loss_mask") is not None:
-        mask = mask * batch["loss_mask"].float()
+        mask = mask * dist.gather(batch["loss_mask"]).float()
     if cfg.vision_seq:
         vis = torch.arange(tokens.shape[1], device=tokens.device) < \
             cfg.vision_seq
@@ -130,18 +167,19 @@ def forward_logits(params, cfg, batch):
 
 
 def prefill_step(params, cfg, batch):
-    """Run the prompt; return (last-token logits, caches)."""
+    """Run the prompt; return (last-token logits, caches), the caches
+    placed by ``cache_shardings`` under a mesh (:func:`place_caches`)."""
     p = prepare(params, cfg)
     hidden, caches = transformer.forward(
         p, cfg, batch["tokens"], vision_embeds=batch.get("vision_embeds"),
         enc_frames=batch.get("enc_frames"), mode="prefill")
-    return _logits_fn(p, cfg)(hidden[:, -1:]), caches
+    return _logits_fn(p, cfg)(hidden[:, -1:]), place_caches(cfg, caches)
 
 
 def decode_step(params, cfg, token, caches, pos):
     """One decode step.  token: (B, 1) int; pos: int (the index this
     token occupies; the KV cache holds ``pos`` valid entries).  The
-    caches are updated in place and returned."""
+    caches (placed or not) are updated in place and returned."""
     p = prepare(params, cfg)
     hidden, caches = transformer.forward(p, cfg, token, mode="decode",
                                          caches=caches, pos=int(pos))
@@ -150,6 +188,15 @@ def decode_step(params, cfg, token, caches, pos):
 
 # ---------------------------------------------------------------------------
 def init_cache(cfg, batch: int, seq_len: int, dtype=None, *, device="cuda"):
+    """:func:`_zeroed_caches`, placed under a mesh (:func:`place_caches`;
+    not on ``meta``)."""
+    out = _zeroed_caches(cfg, batch, seq_len, dtype, device=device)
+    return out if torch.device(device).type == "meta" else \
+        place_caches(cfg, out)
+
+
+def _zeroed_caches(cfg, batch: int, seq_len: int, dtype=None, *,
+                  device="cuda"):
     """Zeroed caches of the decode shape (filled by prefill in real
     serving): for the dense and VLM families {"k", "v"} of (n_layers, B,
     n_kv_heads, S, head_dim); for the MoE family one such tree per
@@ -233,23 +280,56 @@ def transformer_cache_tree(c):
     return c
 
 
+def place_caches(cfg, caches):
+    """Under a mesh, the sequence-indexed cache leaves (k/v/c_kv/k_rope)
+    placed by ``dist.sharding.cache_shardings``; the recurrent states and
+    the encoder output stay as they are.  With no mesh, ``caches``."""
+    ctx = dist.current()
+    if ctx is None:
+        return caches
+
+    def one(path, leaf):
+        name = dist_sharding._cache_key(path)
+        if name not in dist_sharding._SEQ_CACHE_KEYS or \
+                isinstance(leaf, dist.Placed):
+            return leaf
+        sh = dist_sharding.cache_shardings(cfg, {name: leaf}, ctx)[name]
+        return dist.device_put(leaf, sh)
+    return dist_sharding._map_with_path(one, caches)
+
+
 def pad_caches(caches, target_len: int):
     """Grow every sequence-indexed cache leaf (k/v/c_kv/k_rope, seq axis
     -2) to ``target_len`` with zeros so decode can continue past the
     prompt length.  Lists and tuples are walked too, a leaf named by the
     nearest dict key above it (the hybrid family's ``attn`` list of
     {"k", "v"}), as ``tree_map_with_path`` walks them in the reference;
-    every other leaf is returned as it is."""
-    def visit(name, leaf):
-        if isinstance(leaf, dict):
-            return {k: visit(k, v) for k, v in leaf.items()}
-        if isinstance(leaf, (list, tuple)):
-            return type(leaf)(visit(name, v) for v in leaf)
-        if name in ("k", "v", "c_kv", "k_rope") and \
-                leaf.shape[-2] < target_len:
-            pad = leaf.new_zeros(leaf.shape[:-2] +
-                                 (target_len - leaf.shape[-2],
-                                  leaf.shape[-1]))
-            return torch.cat([leaf, pad], dim=-2)
-        return leaf
-    return visit("", caches)
+    every other leaf is returned as it is.  A placed leaf grows stripe by
+    stripe (``dist.reshard``): its sequence stays striped over the same
+    axes where they divide ``target_len``, and no full cache is made."""
+    def visit(path, leaf):
+        if dist_sharding._cache_key(path) not in \
+                dist_sharding._SEQ_CACHE_KEYS or leaf.shape[-2] >= target_len:
+            return leaf
+        shape = tuple(leaf.shape[:-2]) + (target_len, leaf.shape[-1])
+        if isinstance(leaf, dist.Placed):
+            return dist.reshard(leaf, _grown(leaf.sharding, shape), shape)
+        pad = leaf.new_zeros(shape[:-2] + (target_len - leaf.shape[-2],
+                                           leaf.shape[-1]))
+        return torch.cat([leaf, pad], dim=-2)
+    return dist_sharding._map_with_path(visit, caches)
+
+
+def _grown(sh, shape):
+    """``sh``'s spec on a cache grown to ``shape``: the sequence axis (-2)
+    keeps its mesh axes where they divide the new length."""
+    spec = list(sh.spec) + [None] * (len(shape) - len(sh.spec))
+    axes = spec[-2]
+    if axes is not None:
+        names = (axes,) if isinstance(axes, str) else axes
+        n = 1
+        for a in names:
+            n *= sh.mesh.shape[a]
+        if shape[-2] % n:
+            spec[-2] = None
+    return dist.NamedSharding(sh.mesh, dist.PartitionSpec(*spec))

@@ -2,17 +2,30 @@
 and decode (KV cache), the JAX package's ``models/attention.py``.
 
 Decode computes attention with plain einsums over the KV cache, as the
-reference does; its sequence-parallel form (``_decode_sp``) comes with
-the sharded mesh layer.  ``kv_override`` hands in K/V already in head
-layout, the encoder-decoder family's cross-attention over the encoder
-output.  The reference's ``dist`` sharding hooks are no-ops without a
-mesh and have no counterpart.
+reference does.  ``kv_override`` hands in K/V already in head layout, the
+encoder-decoder family's cross-attention over the encoder output.
+
+Under a mesh (``repro_torch.dist``) the reference's hooks run where it
+calls them: ``dist.constrain_heads`` on q, k, v and the output, and the
+attention itself runs once per mesh position, on the (batch, head) chunk
+that q's spec gives the position (:func:`attend`): that is where the
+flash kernel launches.  Decode under a mesh is the reference's
+sequence-parallel :func:`_decode_sp` over the KV cache striped along the
+``model`` axis: each stripe is written in place on the device that holds
+it, each device attends over its own stripe, and the partials merge by
+the exact log-sum-exp combine (:func:`combine_stripes`), an exchange of
+(max, sum, output) between the positions of each ``model`` group whose
+bytes are counted.  The cache is never gathered.
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 from torch import nn
 
+from .. import dist
 from ..kernels.flash_attention import ops as fa_ops
 from . import rope as rope_mod
 from .layers import Linear, draw, linear
@@ -64,11 +77,48 @@ def _position_encode(q, k, cfg, positions):
 
 def _qkv(p, x, cfg, positions):
     q = _split_heads(linear(p["wq"], x), cfg.n_heads, cfg.head_dim)
+    spec = dist.constrain_heads(q)
     k = _split_heads(linear(p["wk"], x), cfg.n_kv_heads, cfg.head_dim)
     v = _split_heads(linear(p["wv"], x), cfg.n_kv_heads, cfg.head_dim)
     q, k = _position_encode(q, k, cfg, positions)
+    dist.constrain_heads(k)
+    dist.constrain_heads(v)
     # the flash kernel takes contiguous (B, H, S, D) operands
-    return q.contiguous(), k.contiguous(), v.contiguous()
+    return q.contiguous(), k.contiguous(), v.contiguous(), spec
+
+
+def attend(q, k, v, spec, *, causal: bool, impl: str, q_chunk: int,
+           k_chunk: int, scale: float | None = None):
+    """``fa_ops.attention`` over q (B, Hq, Sq, D) and k, v (B, Hkv, Skv,
+    D*): one call with no spec (no mesh, or no axis divides); under the
+    ambient mesh one call per mesh position on the chunk of q that
+    ``spec`` (``dist.constrain_heads``' of q) gives it, with the KV heads
+    its query heads read, each chunk made contiguous for the kernel.
+    Where a chunk's query heads do not cover whole groups of G, each
+    query head gets its own KV head (group 1 in the call).  The output
+    (B, Hq, Sq, Dv) is assembled on q's device."""
+    kw = dict(causal=causal, scale=scale, impl=impl, q_chunk=q_chunk,
+              k_chunk=k_chunk)
+    if spec is None:
+        return fa_ops.attention(q, k, v, **kw)
+    index = dist.NamedSharding(dist.current().mesh, spec) \
+        .devices_indices_map(tuple(q.shape))
+    g = q.shape[1] // k.shape[1]
+    out = q.new_empty(tuple(q.shape[:3]) + (v.shape[-1],))
+    for dev, (bs, hs, _, _) in index.items():
+        h0, h1, _ = hs.indices(q.shape[1])
+        kvh = slice(h0 // g, h1 // g) if h0 % g == 0 and (h1 - h0) % g == 0 \
+            else torch.arange(h0, h1, device=k.device) // g
+        on = dev.torch_device
+        qc, kc, vc = (t.to(on).contiguous()
+                      for t in (q[bs, hs], k[bs][:, kvh], v[bs][:, kvh]))
+        out[bs, hs] = fa_ops.attention(qc, kc, vc, **kw).to(out.device)
+    return out
+
+
+def _attend(q, k, v, spec, cfg, causal):
+    return attend(q, k, v, spec, causal=causal, impl=cfg.attn_impl,
+                  q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk)
 
 
 def attention_train(p, x, cfg, positions, *, causal: bool = True,
@@ -79,21 +129,149 @@ def attention_train(p, x, cfg, positions, *, causal: bool = True,
     if kv_override is None:
         return attention_prefill(p, x, cfg, positions, causal=causal)[0]
     q = _split_heads(linear(p["wq"], x), cfg.n_heads, cfg.head_dim)
+    spec = dist.constrain_heads(q)
     if cfg.rope_type != "none":
         q, _ = _position_encode(q, q, cfg, positions)
     k, v = kv_override
-    out = fa_ops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                           causal=causal, impl=cfg.attn_impl,
-                           q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk)
+    out = _attend(q.contiguous(), k.contiguous(), v.contiguous(), spec,
+                  cfg, causal)
+    dist.constrain_heads(out)
     return linear(p["wo"], _merge_heads(out))
 
 
 def attention_prefill(p, x, cfg, positions, *, causal: bool = True):
     """Like train, but also returns the KV cache contents."""
-    q, k, v = _qkv(p, x, cfg, positions)
-    out = fa_ops.attention(q, k, v, causal=causal, impl=cfg.attn_impl,
-                           q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk)
+    q, k, v, spec = _qkv(p, x, cfg, positions)
+    out = _attend(q, k, v, spec, cfg, causal)
+    dist.constrain_heads(out)
     return linear(p["wo"], _merge_heads(out)), {"k": k, "v": v}
+
+
+# ---------------------------------------------------------------------------
+# sequence-parallel decode over a striped cache
+def stripes(leaf, spec):
+    """``(index, chunks)`` of a cache leaf laid out by ``spec`` over the
+    ambient mesh: each device's index and chunk.  A placed leaf gives its
+    own chunks, and must be laid out so (no leaf is resharded here); a
+    tensor gives views of itself."""
+    sharding = dist.NamedSharding(dist.current().mesh, spec)
+    index = sharding.devices_indices_map(tuple(leaf.shape))
+    if not isinstance(leaf, dist.Placed):
+        return index, {dev: leaf[idx] for dev, idx in index.items()}
+    if not leaf.laid_out_as(sharding):
+        raise ValueError(f"a cache placed as {leaf.sharding.spec} does not "
+                         f"stripe as {spec}")
+    return index, leaf.shards
+
+
+def model_groups(ctx) -> np.ndarray:
+    """One row per position of the other axes: its devices in
+    ``model``-axis order."""
+    m_dim = ctx.mesh.axis_names.index(ctx.model_axis)
+    return np.moveaxis(ctx.mesh.devices, m_dim, -1) \
+        .reshape(-1, ctx.axis_size(ctx.model_axis))
+
+
+def combine_stripes(partials: dict, groups) -> dict:
+    """The exact log-sum-exp merge of per-stripe partial attentions:
+    ``partials[dev]`` is (max, sum, unnormalized output) over the
+    device's stripe, with the max and sum keeping a trailing 1.  Every
+    device of a group receives the others' partials (the counterpart of
+    the reference's ``pmax``/``psum`` over the ``model`` axis; the bytes
+    copied between devices count in ``combine_stripes.exchanged_bytes``)
+    and returns the merged output: sum_j o_j w_j / sum_j l_j w_j, w_j =
+    exp(m_j - max_j m_j).  A stripe whose every key is masked has m_j at
+    -1e30 and contributes w_j = 0."""
+    out = {}
+    for group in groups:
+        for dev in group:
+            parts = []
+            for src in group:
+                if src != dev:
+                    combine_stripes.exchanged_bytes += sum(
+                        t.numel() * t.element_size() for t in partials[src])
+                parts.append([t.to(dev.torch_device, copy=src != dev)
+                              for t in partials[src]])
+            m_glob = functools.reduce(torch.maximum, [p[0] for p in parts])
+            w = [torch.exp(p[0] - m_glob) for p in parts]
+            denom = sum(p[1] * wi for p, wi in zip(parts, w))
+            out[dev] = sum(p[2] * wi for p, wi in zip(parts, w)) / denom
+    return out
+
+
+combine_stripes.exchanged_bytes = 0
+
+
+def decode_stripes(cache: dict, new: dict, spec, seq_dim: int, at: int,
+                   pos: int, score, value, out):
+    """The body of a sequence-parallel decode, once per device of the
+    ambient mesh, over the cache leaves ``cache[name]`` laid out by
+    ``spec`` with the sequence on ``seq_dim``.  The device whose stripe
+    holds position ``at`` writes ``new[name]`` (one position) there in
+    place; each device scores its own keys, ``score(bs, chunks, dev)``
+    in f32 with the keys last, masks those after ``pos``, and forms its
+    partial (max, sum, ``value(probs, chunks)``); the partials merge by
+    :func:`combine_stripes`, and each device's merged output lands in
+    ``out`` at its batch rows.  Returns ``out``."""
+    index, chunks = None, {}
+    for name, leaf in cache.items():
+        idx, chunks[name] = stripes(leaf, spec)
+        index = index or idx
+    s_len = next(iter(cache.values())).shape[seq_dim]
+    partials = {}
+    for dev, idx in index.items():
+        bs, ss, on = idx[0], idx[seq_dim], dev.torch_device
+        mine = {name: c[dev] for name, c in chunks.items()}
+        start = ss.indices(s_len)[0]
+        s_l = next(iter(mine.values())).shape[seq_dim]
+        if start <= at < start + s_l:
+            for name, c in mine.items():
+                c.narrow(seq_dim, at - start, 1).copy_(new[name][bs])
+        sc = score(bs, mine, dev)
+        valid = start + torch.arange(s_l, device=on) <= pos
+        sc = sc.masked_fill(~valid, _NEG_INF)
+        mx = sc.amax(-1, keepdim=True)
+        pr = torch.exp(sc - mx)
+        partials[dev] = (mx, pr.sum(-1, keepdim=True), value(pr, mine))
+    merged = combine_stripes(partials, model_groups(dist.current()))
+    for dev, idx in index.items():
+        rows = out[idx[0]]
+        out[idx[0]] = merged[dev].reshape(rows.shape).to(out.device,
+                                                          out.dtype)
+    return out
+
+
+def _decode_sp(q, k_new, v_new, cache, pos: int, cfg, ctx):
+    """Sequence-parallel decode over the ``model``-striped KV cache (the
+    reference's ``_decode_sp``, its ``shard_map`` body run once per mesh
+    position by :func:`decode_stripes`).  Each stripe updates *in place*
+    on the device that holds it, and only when ``pos`` falls inside it
+    (at ``pos`` >= S no stripe writes), then computes a partial attention
+    over its keys (those at or before ``pos``); the partials combine
+    exactly (:func:`combine_stripes`).  The batch splits over the data
+    axes when they divide it.  This is the paper's memory-controller
+    striping applied to the KV data plane, the small combine its only
+    traffic."""
+    b = q.shape[0]
+    bspec = ctx.all_data_axes if b % ctx.dp_size() == 0 else None
+    spec = dist.PartitionSpec(bspec, None, ctx.model_axis, None)
+    scale = cfg.head_dim ** -0.5
+    g = cfg.n_heads // cfg.n_kv_heads
+
+    def score(bs, kv, dev):
+        qg = q[bs, :, 0].to(dev.torch_device).reshape(
+            -1, cfg.n_kv_heads, g, cfg.head_dim)
+        return torch.einsum("bhgd,bhsd->bhgs", qg.float(),
+                            kv["k"].float()) * scale
+
+    def value(pr, kv):
+        return torch.einsum("bhgs,bhsd->bhgd", pr, kv["v"].float())
+
+    o = q.new_empty((b, cfg.n_heads, 1, cfg.head_dim))
+    decode_stripes({"k": cache["k"], "v": cache["v"]},
+                   {"k": k_new, "v": v_new}, spec, 2, pos, pos, score, value,
+                   o)
+    return o, cache
 
 
 def attention_decode(p, x, cfg, cache, pos: int, *, kv_override=None):
@@ -102,7 +280,11 @@ def attention_decode(p, x, cfg, cache, pos: int, *, kv_override=None):
     before the update).  The cache is written in place at ``pos``,
     clamped into range as ``dynamic_update_slice`` clamps its start, and
     returned.  With ``kv_override`` (k, v) in head layout no cache is
-    written, every key is valid, and ``cache`` is returned as given."""
+    written, every key is valid, and ``cache`` is returned as given.
+    Under any mesh that is not ``model_in_batch`` and whose ``model``
+    size divides S (``single_device_mesh()`` and a data-only mesh among
+    them) the decode is :func:`_decode_sp`, as the reference gates it; a
+    placed cache decodes there only."""
     b = x.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q = _split_heads(linear(p["wq"], x), cfg.n_heads, cfg.head_dim)
@@ -112,7 +294,17 @@ def attention_decode(p, x, cfg, cache, pos: int, *, kv_override=None):
         v_new = _split_heads(linear(p["wv"], x), cfg.n_kv_heads,
                              cfg.head_dim)
         q, k_new = _position_encode(q, k_new, cfg, positions)
+        ctx = dist.current()
+        if (ctx is not None and not ctx.model_in_batch
+                and cache["k"].shape[2] % ctx.axis_size(ctx.model_axis)
+                == 0):
+            o, cache = _decode_sp(q, k_new, v_new, cache, pos, cfg, ctx)
+            return linear(p["wo"], _merge_heads(o)), cache
         k, v = cache["k"], cache["v"]
+        if isinstance(k, dist.Placed):
+            raise ValueError("a placed KV cache decodes through _decode_sp "
+                             "only (a mesh that is not model_in_batch and "
+                             "whose model size divides its length)")
         s_len = k.shape[2]
         at = min(max(pos, 0), s_len - 1)
         k[:, :, at:at + 1] = k_new.to(k.dtype)

@@ -11,13 +11,21 @@ the reference, so MLA never reaches the flash kernel.  Decode runs in the
 attention happens directly against the latent cache — the cache is
 (kv_lora_rank + rope_head_dim) per token instead of 2*H*D, BDDT-SCC's
 lesson of keeping the data plane small and local.
+
+Under a mesh, ``dist.constrain_heads`` runs on q, k, v and the output as
+in the reference, the attention runs once per mesh position on its
+(batch, head) chunk (``attention.attend``), and a latent cache placed by
+``dist.sharding.cache_shardings`` (the sequence striped over ``model``)
+decodes stripe by stripe, merged by ``attention.combine_stripes``: the
+cache is never gathered.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from ..kernels.flash_attention import ops as fa_ops
+from .. import dist
+from . import attention as attn_mod
 from . import rope as rope_mod
 from .layers import Linear, Norm, draw, linear, norm
 
@@ -81,11 +89,15 @@ def mla_train(p, x, cfg, positions, *, causal: bool = True):
     k_nope = linear(p["wk_b"], c_kv).reshape(b, s, h, dn).transpose(1, 2)
     v = linear(p["wv_b"], c_kv).reshape(b, s, h, dv).transpose(1, 2)
     q = torch.cat([q_nope, q_rope], -1)
+    spec = dist.constrain_heads(q)
     k = torch.cat([k_nope, k_rope.expand(b, h, s, dr).to(k_nope.dtype)], -1)
+    dist.constrain_heads(k)
+    dist.constrain_heads(v)
     scale = (dn + dr) ** -0.5
-    out = fa_ops.attention(q, k, v, causal=causal, scale=scale,
-                           impl="chunked", q_chunk=cfg.attn_q_chunk,
-                           k_chunk=cfg.attn_k_chunk)
+    out = attn_mod.attend(q, k, v, spec, causal=causal, scale=scale,
+                          impl="chunked", q_chunk=cfg.attn_q_chunk,
+                          k_chunk=cfg.attn_k_chunk)
+    dist.constrain_heads(out)
     return linear(p["wo"], out.transpose(1, 2).reshape(b, s, h * dv))
 
 
@@ -100,7 +112,8 @@ def mla_decode(p, x, cfg, cache, pos: int):
 
     cache: {"c_kv": (B, S, r), "k_rope": (B, S, dr)}, written in place at
     ``pos``, clamped into range as ``dynamic_update_slice_in_dim`` clamps
-    its start, and returned.
+    its start, and returned.  A placed cache (under a mesh) decodes
+    stripe by stripe (:func:`_latent_attend_striped`).
     scores_h(t) = q_nope_h . (W_uk_h c_t) + q_rope_h . k_rope_t
                 = (W_uk_h^T q_nope_h) . c_t + q_rope_h . k_rope_t
     out_h = W_uv_h (sum_t softmax_t c_t)  — all against the latent.
@@ -115,21 +128,51 @@ def mla_decode(p, x, cfg, cache, pos: int):
     c_kv, k_rope = cache["c_kv"], cache["k_rope"]       # (B,S,r),(B,S,dr)
     s_len = c_kv.shape[1]
     at = min(max(pos, 0), s_len - 1)
-    c_kv[:, at:at + 1] = c_new.to(c_kv.dtype)
-    k_rope[:, at:at + 1] = k_rope_new[:, 0].to(k_rope.dtype)
     # absorb q through the K up-projection: (B,H,dn) @ (r,H,dn) -> (B,H,r)
     wk_b = p["wk_b"]["w"].reshape(r, h, dn)
     q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, :, 0].float(),
                          wk_b.float())
     scale = (dn + dr) ** -0.5
-    logits = (torch.einsum("bhr,bsr->bhs", q_lat, c_kv.float()) +
-              torch.einsum("bhd,bsd->bhs", q_rope[:, :, 0].float(),
-                           k_rope.float())) * scale
-    valid = torch.arange(s_len, device=x.device) <= pos
-    logits = logits.masked_fill(~valid, _NEG_INF)
-    w = torch.softmax(logits, dim=-1)
-    o_lat = torch.einsum("bhs,bsr->bhr", w, c_kv.float())
+    if isinstance(c_kv, dist.Placed):
+        o_lat = _latent_attend_striped(q_lat, q_rope[:, :, 0].float(), c_new,
+                                       k_rope_new[:, 0], cache, at, pos,
+                                       scale)
+    else:
+        c_kv[:, at:at + 1] = c_new.to(c_kv.dtype)
+        k_rope[:, at:at + 1] = k_rope_new[:, 0].to(k_rope.dtype)
+        logits = (torch.einsum("bhr,bsr->bhs", q_lat, c_kv.float()) +
+                  torch.einsum("bhd,bsd->bhs", q_rope[:, :, 0].float(),
+                               k_rope.float())) * scale
+        valid = torch.arange(s_len, device=x.device) <= pos
+        logits = logits.masked_fill(~valid, _NEG_INF)
+        w = torch.softmax(logits, dim=-1)
+        o_lat = torch.einsum("bhs,bsr->bhr", w, c_kv.float())
     wv_b = p["wv_b"]["w"].reshape(r, h, dv)
     o = torch.einsum("bhr,rhv->bhv", o_lat, wv_b.float())
     o = o.reshape(b, 1, h * dv).to(x.dtype)
     return linear(p["wo"], o), cache
+
+
+def _latent_attend_striped(q_lat, q_rope, c_new, kr_new, cache, at: int,
+                           pos: int, scale: float):
+    """The absorbed attention over a placed latent cache, one stripe per
+    device of the ambient mesh (``attention.decode_stripes``): the
+    stripe that holds the clamped position ``at`` is written in place,
+    each device scores its own stripe (keys at or before ``pos``) and the
+    partials merge.  Returns o_lat (B, H, r) in f32 on ``q_lat``'s
+    device."""
+    def score(bs, lat, dev):
+        on = dev.torch_device
+        return (torch.einsum("bhr,bsr->bhs", q_lat[bs].to(on),
+                             lat["c_kv"].float()) +
+                torch.einsum("bhd,bsd->bhs", q_rope[bs].to(on),
+                             lat["k_rope"].float())) * scale
+
+    def value(pr, lat):
+        return torch.einsum("bhs,bsr->bhr", pr, lat["c_kv"].float())
+
+    o_lat = q_lat.new_empty(q_lat.shape[:2] + (cache["c_kv"].shape[-1],))
+    return attn_mod.decode_stripes(
+        {"c_kv": cache["c_kv"], "k_rope": cache["k_rope"]},
+        {"c_kv": c_new, "k_rope": kr_new}, cache["c_kv"].sharding.spec, 1,
+        at, pos, score, value, o_lat)

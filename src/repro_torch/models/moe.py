@@ -24,7 +24,10 @@ and tokens, and each ``all_to_all`` becomes an exchange of the (E, C, d)
 buffer's chunks between the logical devices of one EP group, both ways.
 A chunk that moves between two logical devices is copied, even on one
 torch device; ``moe_ffn_ep.exchanged_bytes`` counts the bytes copied.
-Everything is differentiable.
+Expert weights placed by the EP layout (``api.prepare`` pins them, as
+the reference's ``_prep_stack`` does) are read from each device's own
+chunk; unplaced ones are sliced per device.  Everything is
+differentiable.
 """
 from __future__ import annotations
 
@@ -107,10 +110,12 @@ def moe_ffn_ref(p, x, cfg):
     xt = x.reshape(-1, d)
     topv, topi, _ = _router(p, xt, cfg)
 
+    gate, up, down = (dist.gather(p[k]) for k in ("gate", "up", "down"))
+
     def per_choice(j):
-        gw = p["gate"][topi[:, j]].to(x.dtype)          # (N, d, dff)
-        uw = p["up"][topi[:, j]].to(x.dtype)
-        dw = p["down"][topi[:, j]].to(x.dtype)
+        gw = gate[topi[:, j]].to(x.dtype)               # (N, d, dff)
+        uw = up[topi[:, j]].to(x.dtype)
+        dw = down[topi[:, j]].to(x.dtype)
         h = F.silu(torch.einsum("nd,ndf->nf", xt, gw)) * \
             torch.einsum("nd,ndf->nf", xt, uw)
         return torch.einsum("nf,nfd->nd", h, dw)
@@ -222,9 +227,8 @@ def moe_ffn_ep(p, x, cfg, *, capacity_factor: float | None = None):
     x_index = dist.NamedSharding(
         mesh, dist.PartitionSpec(ctx.all_data_axes, seq_axis, None)) \
         .devices_indices_map(tuple(x.shape))
-    w_index = dist.NamedSharding(
-        mesh, dist.PartitionSpec(ep, None, None)) \
-        .devices_indices_map(tuple(p["gate"].shape))
+    w_sharding = dist.NamedSharding(mesh, dist.PartitionSpec(ep, None, None))
+    w_index = w_sharding.devices_indices_map(tuple(p["gate"].shape))
     ep_dim = mesh.axis_names.index(ep)
     # one EP group per position of the other axes: its devices in EP order
     groups = np.moveaxis(mesh.devices, ep_dim, -1).reshape(-1, n_ep)
@@ -233,6 +237,14 @@ def moe_ffn_ep(p, x, cfg, *, capacity_factor: float | None = None):
         if isinstance(t, dict):
             return {k: on(v, dev) for k, v in t.items()}
         return t.to(dev.torch_device)
+
+    def expert_chunk(w, dev):
+        if not isinstance(w, dist.Placed):
+            return on(w[w_index[dev]], dev)
+        if not w.laid_out_as(w_sharding):
+            raise ValueError(f"expert weights placed as {w.sharding.spec} "
+                             f"are not the EP layout {w_sharding.spec}")
+        return w.shards[dev]
 
     # every position holds an equal shard, so one capacity for all
     b_l, s_l, d = x[next(iter(x_index.values()))].shape
@@ -260,7 +272,7 @@ def moe_ffn_ep(p, x, cfg, *, capacity_factor: float | None = None):
             # (n_ep, E_l, C, d) -> (E_l, n_ep*C, d)
             rj = recv[j].reshape(n_ep, e_l, capacity, d).transpose(0, 1) \
                 .reshape(e_l, n_ep * capacity, d)
-            w = [on(p[k][w_index[dev]], dev) for k in ("gate", "up", "down")]
+            w = [expert_chunk(p[k], dev) for k in ("gate", "up", "down")]
             ye = _expert_ffn(rj, *w, x.dtype)
             # reverse route: (E_l, n_ep, C, d) -> one chunk per source rank
             back.append(list(ye.reshape(e_l, n_ep, capacity, d)

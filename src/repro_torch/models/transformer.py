@@ -21,6 +21,12 @@ f32 states.  The encoder-decoder family (``audio``, whisper) encodes
 precomputed frame embeddings (``enc_frames``, the conv front end's
 stub) with non-causal blocks and runs a causal decoder whose every
 layer cross-attends to the encoder output (:func:`_whisper_forward`).
+
+Under a mesh, ``dist.constrain_seq`` runs where the reference calls it:
+on the embeddings and after every block in train and prefill (the
+attention stacks, the Zamba2 and mLSTM stacks in training, whisper's
+encoder and its decoder in training).  It records the spec it imposes
+and leaves the value as it is.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
+from .. import dist
 from . import attention as attn_mod
 from . import mamba as mamba_mod
 from . import mla as mla_mod
@@ -280,6 +287,7 @@ def _embed_tokens(p, cfg, tokens, vision_embeds=None):
     if vision_embeds is not None and cfg.vision_seq:
         nv = vision_embeds.shape[1]
         x = torch.cat([vision_embeds.to(x.dtype), x[:, nv:]], 1)
+    dist.constrain_seq(x)
     return x
 
 
@@ -350,7 +358,14 @@ def _remat(f, cfg):
         if cfg.remat_policy == "dots" else noop_context_fn
 
     def g(*args):
-        return checkpoint(f, *args, use_reentrant=False,
+        # the recompute runs in the backward pass, on the autograd
+        # engine's thread for CUDA tensors: it reinstalls the ambient mesh
+        ctx = dist.current()
+
+        def under_mesh(*a):
+            with dist.use_context(ctx):
+                return f(*a)
+        return checkpoint(under_mesh, *args, use_reentrant=False,
                           context_fn=context_fn)
     return g
 
@@ -369,8 +384,10 @@ def _run_attn_stack(stacked, x, cfg, positions, mode, caches, pos, *,
     layers = _unstack(stacked)
     if mode == "train":
         def body(h, p_l):
-            return block_apply(p_l, h, cfg, positions, moe_layer=moe_layer,
-                               mode="train")[0]
+            out = block_apply(p_l, h, cfg, positions, moe_layer=moe_layer,
+                              mode="train")[0]
+            dist.constrain_seq(out)
+            return out
         f = _remat(body, cfg)
         for p_l in layers:
             x = f(x, p_l)
@@ -382,6 +399,7 @@ def _run_attn_stack(stacked, x, cfg, positions, mode, caches, pos, *,
         for p_l in layers:
             x, c = block_apply(p_l, x, cfg, positions, moe_layer=moe_layer,
                                mode="prefill")
+            dist.constrain_seq(x)
             for name, leaf in c.items():
                 collected.setdefault(name, []).append(leaf)
         return x, {name: torch.stack(leaves)
@@ -410,7 +428,9 @@ def _zamba_forward(p, cfg, x, positions, mode, caches, pos):
     new: dict[str, list] = {"mamba": [], "conv": [], "attn": []}
 
     def mamba_train(h, p_l):
-        return mamba_mod.mamba_chunked(p_l, h, cfg)
+        out = mamba_mod.mamba_chunked(p_l, h, cfg)
+        dist.constrain_seq(out)
+        return out
     mamba_train = _remat(mamba_train, cfg)
 
     for si in range(len(bounds) - 1):
@@ -460,7 +480,9 @@ def _xlstm_forward(p, cfg, x, mode, caches):
     new: dict[str, list] = {"mlstm": [], "mconv": [], "slstm": []}
 
     def mlstm_train(h, p_l):
-        return h + xlstm_mod.mlstm_chunked(p_l, h, cfg)
+        out = h + xlstm_mod.mlstm_chunked(p_l, h, cfg)
+        dist.constrain_seq(out)
+        return out
     mlstm_train = _remat(mlstm_train, cfg)
 
     for r in range(n_s if n_s else 1):
@@ -517,8 +539,10 @@ def _whisper_forward(p, cfg, tokens, enc_frames, mode, caches, pos):
             p_l["attn"], norm(p_l["ln1"], h, cfg.norm, cfg.norm_eps), cfg,
             None, causal=False)
         h = h + a
-        return h + ffn(p_l["ffn"], norm(p_l["ln2"], h, cfg.norm,
-                                        cfg.norm_eps), cfg.act)
+        out = h + ffn(p_l["ffn"], norm(p_l["ln2"], h, cfg.norm,
+                                       cfg.norm_eps), cfg.act)
+        dist.constrain_seq(out)
+        return out
 
     if mode == "decode":
         enc_out = caches["enc_out"]
@@ -569,7 +593,11 @@ def _whisper_forward(p, cfg, tokens, enc_frames, mode, caches, pos):
 
     layers = _unstack(p["dec_blocks"])
     if mode == "train":
-        f = _remat(lambda h, p_l: dec_layer(h, p_l)[0], cfg)
+        def dec_train(h, p_l):
+            out = dec_layer(h, p_l)[0]
+            dist.constrain_seq(out)
+            return out
+        f = _remat(dec_train, cfg)
         for p_l in layers:
             x = f(x, p_l)
         new_caches = None

@@ -13,10 +13,11 @@ feeds the gates), so it runs one step at a time: the reference's
 operators.  That sequential spine is the architecture's design; the 7:1
 mLSTM:sLSTM interleave keeps it to one layer in eight.
 
-Under a mesh the reference runs the sLSTM recurrence inside
-``shard_map`` (the recurrent weight's gradient then sums once at the
-boundary); that branch comes with the model under a mesh (ROADMAP queue
-1 item 12f).  This module takes the reference's no-mesh path.
+Under a mesh whose full batch axes (``batch_axes_full``: the data axes,
+and ``model`` too under ``model_in_batch``) divide the batch, the
+reference runs the sLSTM recurrence inside ``shard_map``; here it runs
+once per distinct batch shard, on the shard's device, all with the one
+recurrent weight, so its gradient sums once over the shards.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import dist
 from .layers import Linear, Norm, _lead, _param, draw, linear, norm
 from .mamba import _causal_conv
 
@@ -251,6 +253,28 @@ def _slstm_recurrence(r, x_in, state):
     return (c, n, m, hp), torch.stack(hs)
 
 
+def _slstm_sharded(r, x_in, state, ctx):
+    """The recurrence once per distinct shard of the batch over
+    ``ctx.batch_axes_full``, on the shard's device; the shards' states
+    and outputs concatenated in batch order on ``x_in``'s device."""
+    spec = dist.PartitionSpec(ctx.batch_axes_full, None, None)
+    index = dist.NamedSharding(ctx.mesh, spec) \
+        .devices_indices_map(tuple(x_in.shape))
+    shards = {}
+    for dev, (bs, _, _) in index.items():
+        start = bs.indices(x_in.shape[0])[0]
+        if start in shards:
+            continue
+        on = dev.torch_device
+        shards[start] = _slstm_recurrence(
+            r.to(on), x_in[bs].to(on), tuple(t[bs].to(on) for t in state))
+    parts = [shards[k] for k in sorted(shards)]
+    dev = x_in.device
+    state_f = tuple(torch.cat([p[0][i].to(dev) for p in parts], 0)
+                    for i in range(4))
+    return state_f, torch.cat([p[1].to(dev) for p in parts], 1)
+
+
 def slstm_scan(p, u, cfg, *, state=None, return_state: bool = False):
     """u: (B, S, d) -> (B, S, d), one step a position (true recurrence);
     with ``return_state`` also the (c, n, m, h) f32 state."""
@@ -266,7 +290,12 @@ def slstm_scan(p, u, cfg, *, state=None, return_state: bool = False):
                  torch.zeros((b, h, dh), **f32),           # n
                  torch.full((b, h, dh), _NEG, **f32),      # m
                  torch.zeros((b, h, dh), **f32))           # h_prev
-    state_f, hs = _slstm_recurrence(p["r"].float(), x_in, state)
+    r = p["r"].float()
+    ctx = dist.current()
+    if ctx is not None and b % ctx.full_batch_size() == 0:
+        state_f, hs = _slstm_sharded(r, x_in, state, ctx)
+    else:
+        state_f, hs = _slstm_recurrence(r, x_in, state)
     hs = hs.transpose(0, 1).reshape(b, s, d).to(u.dtype)
     hs = norm(p["out_norm"], hs, "rmsnorm")
     # gated post-MLP (proj factor ~4/3)

@@ -45,6 +45,12 @@ program across two cards (skipped below two CUDA devices).  The training
 tests hold the training path (chunked attention, chunked CE, both remat
 policies) against the plain one in f32, and a resumed training run
 against the straight one, bit for bit, under deterministic algorithms.
+The mesh tests serve a reduced Granite on a (2, 2) mesh of 4 logical
+devices of the card (the flash kernel once per layer and mesh position,
+on each position's contiguous (batch, head) chunk; decode through
+``_decode_sp`` over the striped cache, never gathered), held against
+the CPU's run with no mesh in f32, and ``_decode_sp`` alone on the card
+against the CPU at a stripe boundary, at S - 1 and at S.
 """
 import pytest
 import torch
@@ -57,8 +63,10 @@ from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_decode import kernel as fd_kernel
 from repro_torch.kernels.jacobi import kernel as jac_kernel
 from repro_torch.kernels.matmul import kernel as mm_kernel
+from repro_torch import dist
 from repro_torch.launch import serve as llm_serve
-from repro_torch.models import api, moe
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import api, attention, moe
 from test_torch_moe_routes import RouteReplay
 
 
@@ -1031,3 +1039,85 @@ def test_cuda_pipeline_step_on_logical_devices_matches_autograd(cuda_device):
         err = (got - want.grad).abs().amax(dim=tuple(range(1, got.ndim)))
         top = want.grad.abs().amax(dim=tuple(range(1, got.ndim)))
         assert (err <= 1e-5 * top).all(), (err, top)
+
+
+def _mesh_2x2(device):
+    return make_mesh((2, 2), ("data", "model"),
+                     dist.logical_devices(4, device))
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_serving_launches_per_position_and_matches_the_cpu(
+        cuda_device):
+    """A reduced Granite (f32, ``attn_impl="pallas"``) placed by ``tp`` on
+    a (2, 2) mesh of 4 logical devices of the card: prefill launches the
+    flash kernel once per layer and mesh position, decode runs
+    ``_decode_sp`` over the striped cache with nothing gathered, and the
+    prefill and 4 decode steps' logits are within 1e-3 of the CPU's with
+    no mesh (the f32 FFMA kernel against the plain version, the stripes'
+    merge against one softmax)."""
+    cfg = configs.get_config("granite-moe-1b-a400m").reduced(
+        attn_impl="pallas")
+    params = api.init_params(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (4, 64), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(1))
+    nxt = torch.randint(0, cfg.vocab_size, (4, 4), dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(2))
+
+    def steps(p, device):
+        with torch.inference_mode():
+            logits, caches = api.prefill_step(
+                p, cfg, {"tokens": tokens.to(device)})
+            got = [logits.cpu()]
+            caches = api.pad_caches(caches, 64 + 8)
+            for i in range(nxt.shape[1]):
+                logits, caches = api.decode_step(
+                    p, cfg, nxt[:, i:i + 1].to(device), caches, 64 + i)
+                got.append(logits.cpu())
+        return got, caches
+
+    want, _ = steps(params, "cpu")
+    params.to(cuda_device)
+    with dist.use_mesh(_mesh_2x2(cuda_device)) as ctx:
+        placed = dist.device_put(params, dist.sharding.param_shardings(
+            cfg, params, ctx, policy="tp"))
+        p = api.prepare(placed, cfg)
+        fa_kernel.flash_attention.launches = 0
+        gathered = dist.gather.copied_bytes
+        got, caches = steps(p, cuda_device)
+        torch.cuda.synchronize()
+        assert fa_kernel.flash_attention.launches == cfg.n_layers * 4
+        assert dist.gather.copied_bytes == gathered
+    assert all(isinstance(x, dist.Placed)
+               for x in dist.placed_leaves(caches)) and \
+        caches["moe"]["k"].shards[ctx.mesh.devices.flat[0]].is_cuda
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos", [32, 63, 64])
+def test_cuda_decode_sp_matches_the_cpu(cuda_device, pos):
+    """``_decode_sp`` over a 64-row cache striped on the (2, 2) mesh of
+    the card against the same on the CPU's logical devices: a stripe
+    boundary, the last row, and one past it (no stripe writes)."""
+    cfg = configs.get_config("granite-moe-1b-a400m").reduced()
+    g = torch.Generator().manual_seed(5)
+    shapes = ((4, cfg.n_heads, 1, cfg.head_dim),
+              (4, cfg.n_kv_heads, 1, cfg.head_dim),
+              (4, cfg.n_kv_heads, 1, cfg.head_dim),
+              (4, cfg.n_kv_heads, 64, cfg.head_dim),
+              (4, cfg.n_kv_heads, 64, cfg.head_dim))
+    q, kn, vn, kc, vc = (torch.randn(s, generator=g) for s in shapes)
+    out = {}
+    for device in ("cpu", cuda_device):
+        with dist.use_mesh(_mesh_2x2(device)) as ctx:
+            cache = api.place_caches(cfg, {"k": kc.to(device),
+                                           "v": vc.to(device)})
+            o, cache = attention._decode_sp(
+                *(t.to(device) for t in (q, kn, vn)), cache, pos, cfg, ctx)
+            out[str(device)] = [o.cpu()] + [dist.gather(cache[n]).cpu()
+                                            for n in ("k", "v")]
+    for a, b in zip(out[str(cuda_device)], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
