@@ -1949,15 +1949,10 @@ def logical_mesh(dev, shape):
 def mesh_counters(reset: bool = False) -> dict:
     """The mesh path's byte counters and the flash launches (zeroed with
     ``reset``)."""
-    from repro_torch import dist
     from repro_torch.kernels.flash_attention import kernel as fa
-    from repro_torch.models import attention, moe
-    owners = {"gathered_bytes": (dist.gather, "copied_bytes"),
-              "placed_bytes": (dist.device_put, "copied_bytes"),
-              "ep_exchanged_bytes": (moe.moe_ffn_ep, "exchanged_bytes"),
-              "sp_combine_bytes": (attention.combine_stripes,
-                                   "exchanged_bytes"),
-              "flash_attention_launches": (fa.flash_attention, "launches")}
+    from repro_torch.launch import dryrun
+    owners = dict(dryrun.COUNTERS,
+                  flash_attention_launches=(fa.flash_attention, "launches"))
     if reset:
         for obj, attr in owners.values():
             setattr(obj, attr, 0)
@@ -2015,6 +2010,7 @@ def mesh_train(dev, card: str, mesh) -> dict:
         run(0)                                     # warm-up; lr(0) = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         mesh_counters(reset=True)
         ms, metrics = [], []
         for step in range(1, MESH_TRAIN_TIMED + 1):
@@ -2048,7 +2044,8 @@ def mesh_train(dev, card: str, mesh) -> dict:
                batch=MESH_TRAIN_BATCH, seq=MESH_TRAIN_SEQ, params=n_params,
                bytes_by_device=held, step_ms=step_ms, step_ms_all=ms,
                tok_per_s=MESH_TRAIN_BATCH * MESH_TRAIN_SEQ / (step_ms / 1e3),
-               peak_memory_bytes=peak,
+               peak_memory_bytes=peak, step_peak_increase_bytes=peak - base,
+               counted_steps=counts,
                gathered_bytes_per_step=per_step["gathered_bytes"],
                placed_bytes_per_step=per_step["placed_bytes"],
                ep_exchanged_bytes_per_step=per_step["ep_exchanged_bytes"],
@@ -2279,12 +2276,13 @@ def mesh_phase(dev, card: str, granite: dict) -> int:
     """The model under a mesh: Granite-3.0-1B-A400M whole on a (2, 2)
     mesh of 4 logical devices of the card, trained (``fsdp``) and served
     (``tp``) through the normal entry points, then held in f32 against
-    no mesh.  Returns the flash launches of one ``generate``."""
+    no mesh.  Returns the flash launches of one ``generate`` and the
+    mesh's train row."""
     import torch
     print(f"[mesh] reduced: {json.dumps(MESH_REDUCED, ensure_ascii=False)}",
           flush=True)
     mesh = logical_mesh(dev, MESH_SHAPE)
-    mesh_train(dev, card, mesh)
+    train_row = mesh_train(dev, card, mesh)
     mesh_train(dev, card, None)
     torch.cuda.empty_cache()
     row = mesh_serve(dev, card, mesh, granite)
@@ -2304,7 +2302,164 @@ def mesh_phase(dev, card: str, granite: dict) -> int:
           f"mesh f32: {exact['flash_launches']} flash launches")
     check(exact["restore_onto_1x4_bit_equal"],
           "mesh: restore with shardings= onto (1, 4) is not the saved state")
-    return row["flash_attention_launches"]
+    return row["flash_attention_launches"], train_row
+
+
+# the dry run (launch/dryrun.py): the two mesh cells above predicted on
+# (2, 2) meta devices and held to their runs on the card, then the
+# decode_32k cell of one arch per family on the 16 x 16 production mesh
+DRYRUN_ARCHS = ("mistral-nemo-12b", "deepseek-v2-lite-16b", "qwen2-vl-72b",
+                "zamba2-1.2b", "xlstm-1.3b", "whisper-tiny")
+DRYRUN_SHAPE = "decode_32k"
+# the predicted peak of a step's allocations against the card's
+# max_memory_allocated() increase, held where the step allocates at
+# least 1 GiB (the allocator's rounding and workspaces are noise below)
+DRYRUN_PEAK_BAND, DRYRUN_PEAK_HELD_FROM = 0.25, 1 << 30
+
+
+def dryrun_serve_real(dev, cfg, mesh, tokens, max_len: int):
+    """``dryrun.serve_steps`` on the card: Granite placed ``tp`` on
+    ``mesh``, each step's byte counters (zeroed just before it) and
+    its ``max_memory_allocated()`` increase.  Returns ``({step:
+    counts}, bytes held by device)``."""
+    import torch
+    from repro_torch import dist
+    from repro_torch.dist import sharding
+    from repro_torch.launch import dryrun
+    from repro_torch.models import api
+
+    real = {}
+
+    def run(name, fn, inputs, donated):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        mesh_counters(reset=True)
+        out = fn(*inputs)
+        torch.cuda.synchronize()
+        real[name] = dict(mesh_counters(), peak_increase_bytes=(
+            torch.cuda.max_memory_allocated() - base))
+        return out
+
+    with dist.use_mesh(mesh) as ctx:
+        decoder = api.init_params(
+            torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+        params = dist.device_put(decoder, sharding.param_shardings(
+            cfg, decoder, ctx, policy="tp"))
+        del decoder
+        torch.cuda.empty_cache()
+        held = dist.bytes_by_device(params)
+        with torch.inference_mode():
+            dryrun.serve_steps(cfg, params, tokens, max_len=max_len,
+                               run=run)
+        del params
+    torch.cuda.empty_cache()
+    return real, held
+
+
+def _held_peak(name: str, predicted: int, real: int) -> bool:
+    """Print a step's predicted peak beside the card's; whether it is
+    held to the band."""
+    ratio = predicted / real if real else float("inf")
+    held = real >= DRYRUN_PEAK_HELD_FROM
+    print(f"[dryrun] peak {name}: predicted {predicted} bytes, card "
+          f"{real} bytes (max_memory_allocated increase), ratio "
+          f"{ratio:.4f}" + ("" if held else " (under 1 GiB: printed)"),
+          flush=True)
+    if held:
+        check(abs(ratio - 1) <= DRYRUN_PEAK_BAND,
+              f"dryrun: {name}'s predicted peak is {ratio:.4f} of the "
+              f"card's, outside +-{DRYRUN_PEAK_BAND}")
+    return held
+
+
+def dryrun_phase(dev, card: str, train_row: dict) -> None:
+    """(a) ``launch.dryrun`` predicts ``[mesh]``'s two cells on (2, 2)
+    ``meta`` devices: Granite's ``fsdp`` train step (B 4 x S 4,096, as
+    ``mesh_train``) and its ``tp`` serving (B 4 x 1,024 + 32, ``pallas``)
+    step by step; the bytes each device holds and every byte counter
+    must equal the card's runs (the train step's from ``[mesh]``, the
+    serving steps' run here), and the predicted peak stay within the
+    band of the card's.  (b) ``lower_cell`` traces the ``decode_32k``
+    cell of one arch per family on the 16 x 16 mesh at full width and
+    depth."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    meta = dryrun.meta_mesh(MESH_SHAPE, MESH_AXES)
+    # (a) the train step
+    cfg = dataclasses.replace(get_config(GRANITE_ARCH), attn_impl="chunked",
+                              remat=True, remat_policy="full")
+    tokens = torch.empty((MESH_TRAIN_BATCH, MESH_TRAIN_SEQ),
+                         dtype=torch.int32, device="meta")
+    tr, held = dryrun.predict_train(cfg, meta, {"tokens": tokens})
+    counted = train_row["counted_steps"]
+    keys = list(dryrun.COUNTERS)
+    card_train = {k: counted[k] // MESH_TRAIN_TIMED for k in keys}
+    predicted = {k: tr.counters[k] for k in keys}
+    print("[dryrun] " + json.dumps(dict(
+        card=card, cell="granite train fsdp (2, 2) B 4 x S 4,096",
+        trace_s=tr.wall_s, held_predicted=held,
+        held_card=train_row["bytes_by_device"], step_predicted=predicted,
+        step_card=card_train, flops=tr.flops,
+        collectives=tr.collectives)), flush=True)
+    check(all(counted[k] % MESH_TRAIN_TIMED == 0 for k in keys),
+          "dryrun: the card's train steps counted unequal bytes")
+    check(held == train_row["bytes_by_device"],
+          "dryrun: predicted bytes held differ from the card's (train)")
+    check(predicted == card_train,
+          "dryrun: predicted train step bytes differ from the card's")
+    peaks = [_held_peak("train step", tr.peak,
+                        train_row["step_peak_increase_bytes"])]
+    # (a) serving, step by step
+    scfg = dataclasses.replace(get_config(GRANITE_ARCH), attn_impl="pallas")
+    max_len = MOE_PROMPT + MOE_NEW + 8
+    traces, held = dryrun.predict_serve(
+        scfg, meta, torch.empty((MOE_BATCH, MOE_PROMPT), dtype=torch.int32,
+                                device="meta"), max_len=max_len)
+    prompt = torch.randint(
+        0, scfg.vocab_size, (MOE_BATCH, MOE_PROMPT), dtype=torch.int32,
+        generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    real, card_held = dryrun_serve_real(dev, scfg,
+                                        logical_mesh(dev, MESH_SHAPE),
+                                        prompt, max_len)
+    steps = {name: dict(predicted={k: t.counters[k] for k in keys},
+                        card={k: real[name][k] for k in keys},
+                        peak_predicted=t.peak,
+                        peak_card=real[name]["peak_increase_bytes"],
+                        trace_s=t.wall_s,
+                        flash_launches_card=real[name][
+                            "flash_attention_launches"])
+             for name, t in traces.items()}
+    print("[dryrun] " + json.dumps(dict(
+        card=card, cell="granite serve tp (2, 2) B 4 x 1,024 + 32 pallas",
+        held_predicted=held, held_card=card_held, steps=steps)), flush=True)
+    check(held == card_held,
+          "dryrun: predicted bytes held differ from the card's (serve)")
+    for name, row in steps.items():
+        check(row["predicted"] == row["card"],
+              f"dryrun: predicted {name} bytes differ from the card's")
+        peaks.append(_held_peak(name, row["peak_predicted"],
+                                row["peak_card"]))
+    # (b) the production mesh
+    for arch in DRYRUN_ARCHS:
+        rec, _ = dryrun.lower_cell(arch, DRYRUN_SHAPE, False)
+        mem = rec["memory"]
+        print("[dryrun] " + json.dumps(dict(
+            cell=f"{arch}__{DRYRUN_SHAPE}__{rec['mesh']}",
+            policy=rec["policy"], compile_s=rec["compile_s"],
+            gib_per_device=mem["per_device_total_bytes"] / 2**30,
+            memory=mem, flops_per_device=rec["flops_per_device"],
+            link_bytes=rec["collectives"]["link_bytes"],
+            total_link_bytes=rec["collectives"]["total_link_bytes"])),
+            flush=True)
+        check(rec["n_devices"] == 256 and rec["flops_per_device"] > 0,
+              f"dryrun: {arch}'s record is empty")
+    print(f"[dryrun] phase {time.perf_counter() - t0:.1f} s; peaks held "
+          f"{sum(peaks)} of {len(peaks)}", flush=True)
 
 
 VLM_ARCH, VLM_LAYERS = "qwen2-vl-72b", 8
@@ -3144,7 +3299,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_launches, granite = moe_phase(dev, card)
     torch.cuda.empty_cache()
-    mesh_launches = mesh_phase(dev, card, granite)
+    mesh_launches, mesh_train_row = mesh_phase(dev, card, granite)
+    torch.cuda.empty_cache()
+    dryrun_phase(dev, card, mesh_train_row)
     torch.cuda.empty_cache()
     vlm_launches = vlm_phase(dev, card)
     torch.cuda.empty_cache()

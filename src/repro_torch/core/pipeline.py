@@ -29,6 +29,7 @@ from dataclasses import dataclass
 
 import torch
 
+from .. import dist
 from .blocks import BlockArray, In, InOut, Out
 from .deps import DependenceAnalyzer
 from .graph import DescriptorPool
@@ -155,6 +156,8 @@ def _hop(t, dst):
     ``pipeline_step.hops`` and ``pipeline_step.hopped_bytes``."""
     pipeline_step.hops += 1
     pipeline_step.hopped_bytes += t.numel() * t.element_size()
+    dist.record_exchange("collective-permute", t.numel() * t.element_size(),
+                         2)
     return t.to(dst.torch_device, copy=True)
 
 

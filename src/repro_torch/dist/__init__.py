@@ -23,6 +23,18 @@ group.  The pieces the runtime reads:
   :func:`single_device_mesh` — the smallest mesh.
 * :class:`Placed`, :func:`device_put`, :func:`gather` — a tensor laid out
   over a mesh as one chunk per device (``dist.placed``).
+* :func:`record_exchanges` — collect the exchanges between logical
+  devices inside a block as ``(kind, result_bytes, group_size, times)``,
+  the port's counterpart of the collectives in the reference's HLO
+  (``launch.hlo_stats.collective_stats`` reads them).  Each counted hop
+  maps to a collective kind: :func:`gather` an all-gather, its backward
+  pass a reduce-scatter (``dist.placed``); ``attention.combine_stripes``
+  three all-reduces over each ``model`` group (the max, the sum and the
+  output: the reference's ``pmax`` and ``psum``); ``moe.moe_ffn_ep``'s
+  exchange an all-to-all over each EP group, each way;
+  ``pipeline_step``'s hops collective-permutes.  Placements
+  (:func:`device_put`, :func:`place`, :func:`reshard`) are no
+  collective.  The byte counters keep counting as they did.
 * :func:`constrain_seq` / :func:`constrain_heads` — the model's two
   hooks, with the reference's divisibility guards: each returns the spec
   it imposes (None without a mesh or where no axis divides), leaves the
@@ -45,7 +57,8 @@ import torch
 from .context import MeshContext
 from . import sharding  # noqa: F401
 from .placed import (Placed, bytes_by_device, device_put, gather,  # noqa
-                     map_placed, placed_leaves, reshard)
+                     map_placed, placed_leaves, record_exchange,
+                     record_exchanges, reshard)
 
 __all__ = ["MeshContext", "use_mesh", "current", "sharding",
            "single_device_mesh", "LogicalDevice", "logical_devices",
@@ -53,7 +66,8 @@ __all__ = ["MeshContext", "use_mesh", "current", "sharding",
            "NamedSharding", "Placed", "device_put", "gather", "reshard",
            "bytes_by_device", "placed_leaves", "map_placed",
            "constrain_seq", "constrain_heads", "place",
-           "record_constraints", "use_context"]
+           "record_constraints", "record_exchanges", "record_exchange",
+           "use_context"]
 
 _state = threading.local()
 

@@ -12,20 +12,39 @@ chunks side by side, so the bytes a device holds
 leaves on another layout) by a tree of shardings; :func:`gather` puts a
 placed leaf back together as one tensor on the torch device of the mesh's
 first device.  Both copy, and count the bytes they copy
-(``device_put.copied_bytes``, ``gather.copied_bytes``).  :func:`gather`
-differentiates: its backward pass hands every device the chunk of the
-gradient at its index (the reduce-scatter of an FSDP step), replicas
-included.
+(``device_put.copied_bytes``, ``gather.copied_bytes``).  Both
+differentiate, each as one autograd node: :func:`gather`'s backward
+pass hands every device the chunk of the gradient at its index (the
+reduce-scatter of an FSDP step), replicas included; a placement's sums
+each device's chunk of the gradient into the full tensor (a chunk that
+received none counts as zeros).
+
+What the exchange recorder (``dist.record_exchanges``) sees here:
+:func:`gather`'s forward pass is an all-gather over the devices that
+hold distinct chunks (its result, the full tensor, once; the bytes the
+recorder's all-gathers sum to are ``gather.copied_bytes``), its backward
+pass a reduce-scatter over them (each device's result, its chunk).  A
+placement is not a collective: :func:`device_put` places the inputs
+of a step, as the reference's ``in_shardings`` do, and :func:`reshard`
+(a leaf placed anew, or a cache grown stripe by stripe by
+``api.pad_caches``) is a placement too, counted with them in
+``device_put.copied_bytes`` and recorded as no exchange.  Every count
+is scaled by ``metatrace.multiplier()``: 1 except in a ``meta`` trace
+that runs a loop's body once for several items.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
 import torch
 
+from .. import metatrace
+
 __all__ = ["Placed", "device_put", "gather", "reshard", "bytes_by_device",
-           "placed_leaves", "map_placed"]
+           "placed_leaves", "map_placed", "record_exchanges",
+           "record_exchange"]
 
 
 class Placed:
@@ -143,8 +162,33 @@ def map_placed(fn, tree):
     return _map(lambda x: fn(x) if isinstance(x, Placed) else x, tree)
 
 
+class _Place(torch.autograd.Function):
+    """A tensor's chunk copy per device in ``index`` order; backward: the
+    chunks' gradients summed into the full tensor at their indices."""
+
+    @staticmethod
+    def forward(ctx, x, index):
+        ctx.shape, ctx.index = x.shape, list(index.values())
+        times = metatrace.multiplier()
+        out = []
+        for dev, idx in index.items():
+            part = x[idx]
+            out.append(torch.empty(part.shape, dtype=x.dtype,
+                                   device=dev.torch_device).copy_(part))
+            device_put.copied_bytes += \
+                part.numel() * part.element_size() * times
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        g = grads[0].new_zeros(ctx.shape)
+        for idx, gi in zip(ctx.index, grads):
+            g[idx].add_(gi.to(g.device))
+        return g, None
+
+
 def _place_one(x, sharding) -> Placed:
-    """One leaf placed: a chunk copy (``clone``) per device."""
+    """One leaf placed: a chunk copy per device (one autograd node)."""
     if isinstance(x, Placed):
         if x.sharding == sharding:
             return x
@@ -152,13 +196,8 @@ def _place_one(x, sharding) -> Placed:
     if not isinstance(x, torch.Tensor):
         x = torch.as_tensor(np.asarray(x))
     index = sharding.devices_indices_map(tuple(x.shape))
-    shards = {}
-    for dev, idx in index.items():
-        part = x[idx]
-        shards[dev] = torch.empty(part.shape, dtype=x.dtype,
-                                  device=dev.torch_device).copy_(part)
-        device_put.copied_bytes += part.numel() * part.element_size()
-    return Placed(sharding, x.shape, shards)
+    return Placed(sharding, x.shape,
+                  dict(zip(index, _Place.apply(x, index))))
 
 
 def device_put(tree, shardings):
@@ -213,7 +252,8 @@ def reshard(x: Placed, sharding, shape=None) -> Placed:
             part = t[tuple(slice(o.start - s.start, o.stop - s.start)
                            for o, s in zip(ov, sidx))]
             chunk[dst] = part.to(dev.torch_device)
-            device_put.copied_bytes += part.numel() * part.element_size()
+            device_put.copied_bytes += \
+                part.numel() * part.element_size() * metatrace.multiplier()
         shards[dev] = chunk
     return Placed(sharding, shape, shards)
 
@@ -234,6 +274,9 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         placed = ctx.placed
+        n = len(placed.distinct())
+        record_exchange("reduce-scatter",
+                         placed.numel() * grad.element_size() // n, n)
         return (None,) + tuple(
             grad[placed.index[dev]].to(dev.torch_device, copy=True)
             for dev in placed.shards)
@@ -245,11 +288,43 @@ def gather(x):
     tensor count in ``gather.copied_bytes``); any other leaf as it is."""
     if not isinstance(x, Placed):
         return x
-    gather.copied_bytes += x.numel() * x.element_size()
+    nbytes = x.numel() * x.element_size()
+    gather.copied_bytes += nbytes * metatrace.multiplier()
+    record_exchange("all-gather", nbytes, len(x.distinct()))
     return _Gather.apply(x, *x.shards.values())
 
 
 gather.copied_bytes = 0
+
+
+# the open exchange recorders, any thread's: a CUDA backward pass runs
+# on the autograd engine's thread
+_recorders: list = []
+
+
+@contextlib.contextmanager
+def record_exchanges():
+    """Collect ``(kind, result_bytes, group_size, times)`` for every
+    exchange between logical devices inside the block (``times`` is
+    ``metatrace.multiplier()``, 1 on real tensors), a backward pass's
+    included; yields the list."""
+    log: list = []
+    _recorders.append(log)
+    try:
+        yield log
+    finally:
+        _recorders.remove(log)
+
+
+def record_exchange(kind: str, result_bytes: int, group_size: int) -> None:
+    """Record one collective with every open :func:`record_exchanges`: as
+    each device of its groups sees it (its result's bytes), standing for
+    ``metatrace.multiplier()`` executions."""
+    if _recorders:
+        rec = (kind, int(result_bytes), int(group_size),
+               metatrace.multiplier())
+        for log in list(_recorders):
+            log.append(rec)
 
 
 def bytes_by_device(tree) -> dict[int, int]:

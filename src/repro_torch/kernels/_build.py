@@ -179,6 +179,17 @@ def require(x: torch.Tensor, name: str, shape: tuple,
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+def require_pointerless(*xs: torch.Tensor, dtype: torch.dtype) -> None:
+    """What :func:`require` checks of operands that have no pointer
+    (``meta`` tensors, a dry run's): dtype and row-major contiguity (the
+    wrapper checked the shapes)."""
+    for x in xs:
+        if x.dtype != dtype:
+            raise ValueError(f"expected {dtype}, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError("expected a contiguous tensor")
+
+
 def stream_handle(device: torch.device) -> int:
     """PyTorch's current stream on ``device``, as the ``void*`` a C entry
     takes."""

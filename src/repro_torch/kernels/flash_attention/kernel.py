@@ -30,8 +30,11 @@ its query block ran, or gives 0 when its block ran none.  The caller's
 ``bq``/``bk`` decide only that; the kernels tile as they like.
 
 The wrapper runs the plain version (:func:`flash_attention_plain`) for
-tensors on the CPU and launches a kernel for tensors on a CUDA device; it
-counts the launches in ``flash_attention.launches`` and, by kernel, in
+tensors on the CPU and launches a kernel for tensors on a CUDA device.
+On ``meta`` tensors (a dry run) it checks what the card's path checks,
+launches nothing and returns the output the kernel would write; a flop
+counter counts the plain version (``metatrace.account``).  It counts
+the launches in ``flash_attention.launches`` and, by kernel, in
 ``flash_attention.launches_by_kernel``.  Neither has a backward, as the
 TPU kernel has none: an input that requires grad while grad mode is on
 is refused.
@@ -41,6 +44,7 @@ import functools
 
 import torch
 
+from ... import metatrace
 from .. import _build
 
 __all__ = ["flash_attention", "flash_attention_plain", "SUPPORTED_HEAD_DIMS"]
@@ -136,7 +140,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     dtype.  The plain version on the CPU, one kernel launch on CUDA
     (bf16 or f32, one dtype, contiguous, 16-byte aligned, D in
     :data:`SUPPORTED_HEAD_DIMS`): the ``wgmma`` kernel for bf16, the FFMA
-    kernel for f32 (:data:`KERNELS`).  ``min(bq, Sq)`` and ``min(bk, Skv)``
+    kernel for f32 (:data:`KERNELS`); on ``meta`` no launch, an empty
+    output.  ``min(bq, Sq)`` and ``min(bk, Skv)``
     must divide Sq and Skv, the TPU kernel's block contract."""
     _check(q, k, v)
     b, hq, sq, d = q.shape
@@ -147,16 +152,21 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if kinds == {"cpu"}:
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      bq=bq, bk=bk)
-    if kinds != {"cuda"}:
+    if kinds not in ({"cuda"}, {"meta"}):
         raise ValueError(f"operands on mixed or unsupported devices: "
                          f"{sorted(str(x.device) for x in (q, k, v))}")
     if q.dtype not in KERNELS:
         raise ValueError(f"expected bfloat16 or float32, got {q.dtype}")
+    if d not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {SUPPORTED_HEAD_DIMS}")
+    if kinds == {"meta"}:
+        _build.require_pointerless(q, k, v, dtype=q.dtype)
+        metatrace.account(flash_attention_plain, q, k, v, causal=causal,
+                          scale=scale, bq=bq, bk=bk)
+        return torch.empty_like(q)
     _build.require(q, "q", (b, hq, sq, d), dtype=q.dtype)
     _build.require(k, "k", (b, hkv, skv, d), dtype=q.dtype, device=q.device)
     _build.require(v, "v", (b, hkv, skv, d), dtype=q.dtype, device=q.device)
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {SUPPORTED_HEAD_DIMS}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.data_ptr() % 16:
             raise ValueError(f"{name}: expected a 16-byte aligned tensor")

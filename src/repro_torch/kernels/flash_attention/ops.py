@@ -8,10 +8,14 @@ chunks in plain torch; ``pallas`` is the hand-written kernel
 kernel is called directly and declares no operator.  ``chunked`` and
 ``naive`` differentiate; the kernel has no backward (nor has the TPU
 kernel) and refuses inputs that require grad while grad mode is on.
+On ``meta`` tensors ``chunked`` runs three query blocks and three key
+blocks of each, the middle ones counted for the rest
+(``metatrace.steps``).
 """
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ... import metatrace
 from . import kernel, ref
 
 __all__ = ["attention", "chunked_attention"]
@@ -76,8 +80,8 @@ def chunked_attention(q, k, v, *, causal: bool = True,
         m = torch.full((b, hq, bq), _NEG_INF, device=q.device)
         l = torch.zeros((b, hq, bq), device=q.device)
         acc = torch.zeros((b, hq, bq, dv), device=q.device)
-        for k0 in range(0, skv, bk):
-            m, l, acc = checkpoint(kv_step, m, l, acc, qb,
+        for k0 in metatrace.steps(range(0, skv, bk), like=qb):
+            m, l, acc = checkpoint(metatrace.frozen(kv_step), m, l, acc, qb,
                                    kf[:, :, k0:k0 + bk],
                                    vf[:, :, k0:k0 + bk], q0, k0,
                                    use_reentrant=False)
@@ -85,6 +89,7 @@ def chunked_attention(q, k, v, *, causal: bool = True,
         # cast per chunk: the output stays in the compute dtype
         return (acc / l[..., None]).to(q.dtype)
 
-    return torch.cat([checkpoint(q_block, qf[:, :, q0:q0 + bq], q0,
-                                 use_reentrant=False)
-                      for q0 in range(0, sq, bq)], dim=2)
+    blocks = metatrace.steps(range(0, sq, bq), like=q)
+    return torch.cat(blocks.fill([
+        checkpoint(metatrace.frozen(q_block), qf[:, :, q0:q0 + bq], q0,
+                   use_reentrant=False) for q0 in blocks]), dim=2)

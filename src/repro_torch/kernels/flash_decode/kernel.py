@@ -23,13 +23,17 @@ it is used, so every sum is f32.  q, o and lse are f32.
 
 The wrapper runs the plain version (``ref.decode_partial``) for tensors
 on the CPU and launches the kernel for tensors on a CUDA device, and
-counts the launches in ``flash_decode.launches``.
+counts the launches in ``flash_decode.launches``.  On ``meta`` tensors
+(a dry run) it checks what the card's path checks, launches nothing and
+returns the outputs the kernel would write; a flop counter counts the
+plain version (``metatrace.account``).
 """
 import ctypes
 import functools
 
 import torch
 
+from ... import metatrace
 from .. import _build
 from . import ref
 
@@ -122,19 +126,25 @@ def flash_decode(q, k, v, scale: float | None = None, bk: int = 512):
     kinds = {x.device.type for x in (q, k, v)}
     if kinds == {"cpu"}:
         return flash_decode_plain(q, k, v, scale)
-    if kinds != {"cuda"}:
+    if kinds not in ({"cuda"}, {"meta"}):
         raise ValueError(f"operands on mixed or unsupported devices: "
                          f"{sorted(str(x.device) for x in (q, k, v))}")
     if k.dtype not in KV_DTYPES:
         raise ValueError(f"k: expected one of {KV_DTYPES}, got {k.dtype}")
-    _build.require(q, "q", (b, hq, d))
-    _build.require(k, "k", (b, hkv, s, d), dtype=k.dtype, device=q.device)
-    _build.require(v, "v", (b, hkv, s, d), dtype=k.dtype, device=q.device)
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {SUPPORTED_HEAD_DIMS}")
     if hq // hkv > MAX_GROUP:
         raise ValueError(f"{hq // hkv} query heads per KV head, the kernel "
                          f"takes at most {MAX_GROUP}")
+    if kinds == {"meta"}:
+        _build.require_pointerless(q, dtype=torch.float32)
+        _build.require_pointerless(k, v, dtype=k.dtype)
+        metatrace.account(flash_decode_plain, q, k, v, scale)
+        return (torch.empty((b, hq, d), dtype=torch.float32, device="meta"),
+                torch.empty((b, hq), dtype=torch.float32, device="meta"))
+    _build.require(q, "q", (b, hq, d))
+    _build.require(k, "k", (b, hkv, s, d), dtype=k.dtype, device=q.device)
+    _build.require(v, "v", (b, hkv, s, d), dtype=k.dtype, device=q.device)
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.data_ptr() % 16:
             raise ValueError(f"{name}: expected a 16-byte aligned tensor")

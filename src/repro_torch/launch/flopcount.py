@@ -34,6 +34,15 @@ a body that calls the Black-Scholes operator is counted by what it
 computes.  This is counting only: a wrapper on a CUDA tensor still
 launches its kernel and never runs its plain version.
 
+A kernel wrapper called on ``meta`` tensors (``flash_attention``,
+``flash_decode``) launches nothing and returns what its kernel
+allocates; it hands its plain version to ``metatrace.account``, and
+the counter counts that as it counts an operator.
+
+Every count is scaled by ``metatrace.multiplier()``: in a ``meta`` trace
+a loop's middle item stands for the items it skips, and a backward op
+for the autograd node it belongs to (1 everywhere else).
+
 ``torch.utils.flop_counter.FlopCounterMode`` counts the matrix products
 only (no bytes, no elementwise ops, 0 for an FFT), so it is not used
 here; the tests use it to cross-check the matmul flops.
@@ -44,8 +53,11 @@ import functools
 import math
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _disable_current_modes)
 from torch.utils._pytree import tree_flatten
+
+from .. import metatrace
 
 __all__ = ["FlopCounter", "count_step"]
 
@@ -59,7 +71,8 @@ _LAYOUT = {
     "_reshape_alias", "clone", "_conj", "resolve_conj", "resolve_neg",
     # factories of constants: the reference's broadcast_in_dim of a literal
     "empty", "empty_like", "empty_strided", "zeros", "zeros_like", "ones",
-    "ones_like", "full", "full_like", "scalar_tensor",
+    "ones_like", "full", "full_like", "scalar_tensor", "new_empty",
+    "new_empty_strided", "new_zeros", "new_ones", "new_full",
 }
 _ZERO_FLOP = {
     "index_select", "gather", "index", "cat", "stack", "arange", "where",
@@ -121,13 +134,42 @@ class FlopCounter(TorchDispatchMode):
         self.flops = 0.0
         self.bytes = 0.0
         self.by_op: dict[str, list[float]] = {}
+        self._scaled = True
+
+    def __enter__(self):
+        metatrace._counters.append(self)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        metatrace._counters.remove(self)
+        return super().__exit__(*exc)
 
     def _add(self, name: str, flops: float, nbytes: float) -> None:
+        if self._scaled:
+            times = metatrace.multiplier()
+            flops, nbytes = flops * times, nbytes * times
         self.flops += flops
         self.bytes += nbytes
         row = self.by_op.setdefault(name, [0.0, 0.0])
         row[0] += flops
         row[1] += nbytes
+
+    def _count_inner(self, plain, args, kwargs):
+        """Run ``plain`` under an unscaled counter; add its ops' counts,
+        each by its rule, scaled once.  Returns its output."""
+        inner = FlopCounter()
+        inner._scaled = False
+        with inner:
+            out = plain(*args, **kwargs)
+        for name, (flops, nbytes) in inner.by_op.items():
+            self._add(name, flops, nbytes)
+        return out
+
+    def count_plain(self, plain, args, kwargs) -> None:
+        """Count ``plain(*args, **kwargs)`` (``metatrace.account``), run on
+        its own: the other modes (a memory tracker) do not see it."""
+        with _disable_current_modes():
+            self._count_inner(plain, args, kwargs)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -137,12 +179,7 @@ class FlopCounter(TorchDispatchMode):
                 raise NotImplementedError(
                     f"{func._schema.name} has no plain version to count")
             # counted through its plain version's ops, each by its rule
-            inner = FlopCounter()
-            with inner:
-                out = plain(*args, **kwargs)
-            for name, (flops, nbytes) in inner.by_op.items():
-                self._add(name, flops, nbytes)
-            return out
+            return self._count_inner(plain, args, kwargs)
         out = func(*args, **kwargs)
         name = func.overloadpacket.__name__
         outs = _tensors(out)

@@ -16,6 +16,11 @@ it, each device attends over its own stripe, and the partials merge by
 the exact log-sum-exp combine (:func:`combine_stripes`), an exchange of
 (max, sum, output) between the positions of each ``model`` group whose
 bytes are counted.  The cache is never gathered.
+
+On ``meta`` tensors (a dry run, ``launch.dryrun``) the loops over mesh
+positions and ``model`` groups run three of their items, the middle one
+counted for the rest (``metatrace.steps``): every position's chunk has
+one shape.
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .. import dist
+from .. import dist, metatrace
 from ..kernels.flash_attention import ops as fa_ops
 from . import rope as rope_mod
 from .layers import Linear, draw, linear
@@ -105,7 +110,7 @@ def attend(q, k, v, spec, *, causal: bool, impl: str, q_chunk: int,
         .devices_indices_map(tuple(q.shape))
     g = q.shape[1] // k.shape[1]
     out = q.new_empty(tuple(q.shape[:3]) + (v.shape[-1],))
-    for dev, (bs, hs, _, _) in index.items():
+    for dev, (bs, hs, _, _) in metatrace.steps(index.items(), like=q):
         h0, h1, _ = hs.indices(q.shape[1])
         kvh = slice(h0 // g, h1 // g) if h0 % g == 0 and (h1 - h0) % g == 0 \
             else torch.arange(h0, h1, device=k.device) // g
@@ -182,21 +187,26 @@ def combine_stripes(partials: dict, groups) -> dict:
     and returns the merged output: sum_j o_j w_j / sum_j l_j w_j, w_j =
     exp(m_j - max_j m_j).  A stripe whose every key is masked has m_j at
     -1e30 and contributes w_j = 0."""
+    first = next(iter(partials.values()))
+    for t in first:
+        dist.record_exchange("all-reduce", t.numel() * t.element_size(),
+                             len(groups[0]))
     out = {}
-    for group in groups:
-        for dev in group:
+    for group in metatrace.steps(groups, like=first[0]):
+        for dev in metatrace.steps(group, like=first[0]):
             parts = []
             for src in group:
                 if src != dev:
                     combine_stripes.exchanged_bytes += sum(
-                        t.numel() * t.element_size() for t in partials[src])
+                        t.numel() * t.element_size() for t in partials[src]
+                    ) * metatrace.multiplier()
                 parts.append([t.to(dev.torch_device, copy=src != dev)
                               for t in partials[src]])
             m_glob = functools.reduce(torch.maximum, [p[0] for p in parts])
             w = [torch.exp(p[0] - m_glob) for p in parts]
             denom = sum(p[1] * wi for p, wi in zip(parts, w))
             out[dev] = sum(p[2] * wi for p, wi in zip(parts, w)) / denom
-    return out
+    return metatrace.fill_keys(out, [d for g in groups for d in g])
 
 
 combine_stripes.exchanged_bytes = 0
@@ -218,23 +228,28 @@ def decode_stripes(cache: dict, new: dict, spec, seq_dim: int, at: int,
         idx, chunks[name] = stripes(leaf, spec)
         index = index or idx
     s_len = next(iter(cache.values())).shape[seq_dim]
-    partials = {}
+    # the stripes that hold ``at`` (one per batch shard) take the new entry
     for dev, idx in index.items():
+        start, stop, _ = idx[seq_dim].indices(s_len)
+        if start <= at < stop:
+            for name, c in chunks.items():
+                c[dev].narrow(seq_dim, at - start, 1).copy_(
+                    new[name][idx[0]])
+    partials = {}
+    for dev, idx in metatrace.steps(index.items(), like=out):
         bs, ss, on = idx[0], idx[seq_dim], dev.torch_device
         mine = {name: c[dev] for name, c in chunks.items()}
         start = ss.indices(s_len)[0]
         s_l = next(iter(mine.values())).shape[seq_dim]
-        if start <= at < start + s_l:
-            for name, c in mine.items():
-                c.narrow(seq_dim, at - start, 1).copy_(new[name][bs])
         sc = score(bs, mine, dev)
         valid = start + torch.arange(s_l, device=on) <= pos
         sc = sc.masked_fill(~valid, _NEG_INF)
         mx = sc.amax(-1, keepdim=True)
         pr = torch.exp(sc - mx)
         partials[dev] = (mx, pr.sum(-1, keepdim=True), value(pr, mine))
-    merged = combine_stripes(partials, model_groups(dist.current()))
-    for dev, idx in index.items():
+    merged = combine_stripes(metatrace.fill_keys(partials, index),
+                             model_groups(dist.current()))
+    for dev, idx in metatrace.steps(index.items(), like=out):
         rows = out[idx[0]]
         out[idx[0]] = merged[dev].reshape(rows.shape).to(out.device,
                                                           out.dtype)

@@ -17,6 +17,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import metatrace
+
 __all__ = ["Linear", "Norm", "FFN", "Embedding", "draw", "linear", "norm",
            "ffn", "embed", "logits_out", "cross_entropy_loss"]
 
@@ -189,9 +191,9 @@ def cross_entropy_loss(logits_fn, hidden, labels, mask, *,
 
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    for i in range(0, s, chunk):
+    for i in metatrace.steps(range(0, s, chunk), like=hidden):
         m = mask[:, i:i + chunk]
-        tot = tot + checkpoint(body, hidden[:, i:i + chunk],
+        tot = tot + checkpoint(metatrace.frozen(body), hidden[:, i:i + chunk],
                                labels[:, i:i + chunk], m, use_reentrant=False)
         cnt = cnt + m.sum()
     return tot / torch.clamp(cnt, min=1.0)

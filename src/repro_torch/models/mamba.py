@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import metatrace
 from .layers import Linear, Norm, _lead, _param, draw, linear, norm
 
 __all__ = ["Mamba", "init_mamba", "mamba_chunked", "mamba_decode",
@@ -144,7 +145,8 @@ def mamba_chunked(p, u, cfg, *, state=None, conv_state=None,
     tri = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
                                 device=u.device))
     ys = []
-    for c0 in range(0, s, chunk):
+    chunks = metatrace.steps(range(0, s, chunk), like=u)
+    for c0 in chunks:
         c = slice(c0, c0 + chunk)
         xk, bk, ck, dk, lk = xf[:, c], Bf[:, c], Cf[:, c], dt[:, c], la[:, c]
         cum = torch.cumsum(lk, 1)                              # (B,L,H)
@@ -163,7 +165,7 @@ def mamba_chunked(p, u, cfg, *, state=None, conv_state=None,
         s_c = torch.einsum("blh,bln,blhd->bhnd", w_state, bk, xk)
         st = st * torch.exp(total)[:, :, None, None] + s_c
         ys.append(y)
-    out = _out(p, torch.cat(ys, 1), x, z, u)
+    out = _out(p, torch.cat(chunks.fill(ys), 1), x, z, u)
     if return_state:
         return out, st, conv_state
     return out

@@ -27,7 +27,9 @@ torch device; ``moe_ffn_ep.exchanged_bytes`` counts the bytes copied.
 Expert weights placed by the EP layout (``api.prepare`` pins them, as
 the reference's ``_prep_stack`` does) are read from each device's own
 chunk; unplaced ones are sliced per device.  Everything is
-differentiable.
+differentiable.  On ``meta`` tensors the loop over EP groups runs its
+first, second and last groups, the second counted for the rest
+(``metatrace.steps``).
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .. import dist
+from .. import dist, metatrace
 from .layers import FFN, Linear, _lead, _param, draw, ffn, linear
 
 __all__ = ["MoE", "init_moe", "moe_ffn_ref", "moe_ffn_ep", "moe_ffn",
@@ -188,7 +190,8 @@ def _move(t, src, dst):
     tensor itself when they are one."""
     if src == dst:
         return t
-    moe_ffn_ep.exchanged_bytes += t.numel() * t.element_size()
+    moe_ffn_ep.exchanged_bytes += \
+        t.numel() * t.element_size() * metatrace.multiplier()
     return t.to(dst.torch_device, copy=True)
 
 
@@ -250,9 +253,13 @@ def moe_ffn_ep(p, x, cfg, *, capacity_factor: float | None = None):
     b_l, s_l, d = x[next(iter(x_index.values()))].shape
     n_l = b_l * s_l
     capacity = _capacity(cf, n_l, cfg)
+    # the two all_to_alls: each device sends and receives (E, C, d)
+    for _ in range(2):
+        dist.record_exchange("all-to-all",
+                             e * capacity * d * x.element_size(), n_ep)
     out = x.new_zeros(x.shape)
     written = set()
-    for group in groups:
+    for group in metatrace.steps(groups, like=x):
         group = list(group)
         # per rank: route and dispatch its tokens into (E, C, d) buckets
         local = []

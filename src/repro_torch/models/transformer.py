@@ -27,6 +27,11 @@ on the embeddings and after every block in train and prefill (the
 attention stacks, the Zamba2 and mLSTM stacks in training, whisper's
 encoder and its decoder in training).  It records the spec it imposes
 and leaves the value as it is.
+
+On ``meta`` tensors (a dry run, ``launch.dryrun``) every loop over the
+layers, the Zamba2 segments and the xLSTM repeats runs its first, second
+and last items, the second counted for the rest (``metatrace.steps``);
+the caches of the items not run are views of the second's.
 """
 from __future__ import annotations
 
@@ -40,7 +45,7 @@ from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
-from .. import dist
+from .. import dist, metatrace
 from . import attention as attn_mod
 from . import mamba as mamba_mod
 from . import mla as mla_mod
@@ -365,23 +370,53 @@ def _remat(f, cfg):
         def under_mesh(*a):
             with dist.use_context(ctx):
                 return f(*a)
-        return checkpoint(under_mesh, *args, use_reentrant=False,
-                          context_fn=context_fn)
+        return checkpoint(metatrace.frozen(under_mesh), *args,
+                          use_reentrant=False, context_fn=context_fn)
     return g
 
 
-def _unstack(stacked) -> list[dict]:
-    """One parameter tree per layer, views of the stacked leaves (one
-    ``unbind`` a leaf, so the backward pass stacks the layers' gradients
-    once)."""
-    cols = tree_map(lambda a: a.unbind(0), stacked)
-    n = len(tree_leaves(cols)[0])
-    return [tree_map(lambda c: c[i], cols) for i in range(n)]
+class _Layers:
+    """The layers of a stacked parameter tree: ``[i]`` is layer ``i``'s
+    tree, ``[a:b]`` the layers a..b-1.  A tensor leaf is viewed by one
+    ``unbind`` (the backward pass stacks the layers' gradients once); a
+    placed leaf (the EP-pinned experts) is indexed when its layer is
+    read, so a loop that reads only some layers (a ``meta`` trace) makes
+    only their views."""
+
+    def __init__(self, cols, start: int, stop: int):
+        self.cols, self.start, self.stop = cols, start, stop
+
+    def __len__(self) -> int:
+        return self.stop - self.start
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self)))
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            a, b, step = i.indices(len(self))
+            if step != 1:
+                raise IndexError("layers slice with step 1 only")
+            return _Layers(self.cols, self.start + a, self.start + b)
+        if not -len(self) <= i < len(self):
+            raise IndexError(i)
+        j = self.start + (i % len(self))
+        return tree_map(lambda c: c[j], self.cols)
+
+
+def _unstack(stacked) -> _Layers:
+    """One parameter tree per layer, views of the stacked leaves."""
+    cols = tree_map(lambda a: a if isinstance(a, dist.Placed)
+                    else a.unbind(0), stacked)
+    leaf = tree_leaves(cols)[0]
+    n = leaf.shape[0] if isinstance(leaf, dist.Placed) else len(leaf)
+    return _Layers(cols, 0, n)
 
 
 def _run_attn_stack(stacked, x, cfg, positions, mode, caches, pos, *,
                     moe_layer: bool):
     layers = _unstack(stacked)
+    loop = metatrace.steps(range(len(layers)), like=x)
     if mode == "train":
         def body(h, p_l):
             out = block_apply(p_l, h, cfg, positions, moe_layer=moe_layer,
@@ -389,22 +424,23 @@ def _run_attn_stack(stacked, x, cfg, positions, mode, caches, pos, *,
             dist.constrain_seq(out)
             return out
         f = _remat(body, cfg)
-        for p_l in layers:
-            x = f(x, p_l)
+        for i in loop:
+            x = f(x, layers[i])
         return x, None
     if mode == "prefill":
         # whatever cache leaves the block returns (k/v, or c_kv/k_rope),
         # stacked over the layers
         collected: dict[str, list] = {}
-        for p_l in layers:
-            x, c = block_apply(p_l, x, cfg, positions, moe_layer=moe_layer,
-                               mode="prefill")
+        for i in loop:
+            x, c = block_apply(layers[i], x, cfg, positions,
+                               moe_layer=moe_layer, mode="prefill")
             dist.constrain_seq(x)
             for name, leaf in c.items():
                 collected.setdefault(name, []).append(leaf)
-        return x, {name: torch.stack(leaves)
+        return x, {name: torch.stack(loop.fill(leaves))
                    for name, leaves in collected.items()}
-    for i, p_l in enumerate(layers):
+    for i in loop:
+        p_l = layers[i]
         x, _ = block_apply(p_l, x, cfg, None, moe_layer=moe_layer,
                            mode="decode",
                            cache={name: leaf[i]
@@ -433,7 +469,9 @@ def _zamba_forward(p, cfg, x, positions, mode, caches, pos):
         return out
     mamba_train = _remat(mamba_train, cfg)
 
-    for si in range(len(bounds) - 1):
+    # segments 1 .. n-2 are alike (the shared block, attn_every layers)
+    segs = metatrace.steps(range(len(bounds) - 1), like=x)
+    for si in segs:
         if si > 0:
             h = linear(p["shared_in"], torch.cat([x, x0], -1))
             x, c = block_apply(p["shared_attn"], h, cfg, positions,
@@ -442,28 +480,32 @@ def _zamba_forward(p, cfg, x, positions, mode, caches, pos):
                                if mode == "decode" else None)
             new["attn"].append(c)
         seg = layers[bounds[si]:bounds[si + 1]]
+        loop = metatrace.steps(range(len(seg)), like=x)
         if mode == "train":
-            for p_l in seg:
-                x = mamba_train(x, p_l)
+            for i in loop:
+                x = mamba_train(x, seg[i])
         elif mode == "prefill":
             sts, css = [], []
-            for p_l in seg:
-                x, st, cs = mamba_mod.mamba_chunked(p_l, x, cfg,
+            for i in loop:
+                x, st, cs = mamba_mod.mamba_chunked(seg[i], x, cfg,
                                                     return_state=True)
                 sts.append(st)
                 css.append(cs)
-            new["mamba"].append(torch.stack(sts))
-            new["conv"].append(torch.stack(css))
+            new["mamba"].append(torch.stack(loop.fill(sts)))
+            new["conv"].append(torch.stack(loop.fill(css)))
         else:
             sts, css = caches["mamba"][si], caches["conv"][si]
-            for i, p_l in enumerate(seg):
-                x, st, cs = mamba_mod.mamba_decode(p_l, x, cfg, sts[i],
+            for i in loop:
+                x, st, cs = mamba_mod.mamba_decode(seg[i], x, cfg, sts[i],
                                                    css[i])
                 sts[i].copy_(st)
                 css[i].copy_(cs)
-            new["mamba"].append(sts)
-            new["conv"].append(css)
-    return x, (None if mode == "train" else new)
+    if mode == "train":
+        return x, None
+    if mode == "decode":
+        # written in place: the caches are the ones given
+        return x, {k: caches[k] for k in new}
+    return x, {k: segs.fill(v) for k, v in new.items()}
 
 
 def _xlstm_forward(p, cfg, x, mode, caches):
@@ -485,32 +527,34 @@ def _xlstm_forward(p, cfg, x, mode, caches):
         return out
     mlstm_train = _remat(mlstm_train, cfg)
 
-    for r in range(n_s if n_s else 1):
+    # the repeats are alike (per mLSTM layers, then one sLSTM)
+    reps = metatrace.steps(range(n_s if n_s else 1), like=x)
+    for r in reps:
         seg = mlayers[r * per:min((r + 1) * per, n_m)]
+        loop = metatrace.steps(range(len(seg)), like=x)
         if mode == "train":
-            for p_l in seg:
-                x = mlstm_train(x, p_l)
+            for i in loop:
+                x = mlstm_train(x, seg[i])
         elif mode == "prefill":
             sts, css = [], []
-            for p_l in seg:
-                out, st, cs = xlstm_mod.mlstm_chunked(p_l, x, cfg,
+            for i in loop:
+                out, st, cs = xlstm_mod.mlstm_chunked(seg[i], x, cfg,
                                                       return_state=True)
                 x = x + out
                 sts.append(st)
                 css.append(cs)
-            new["mlstm"].append(tuple(torch.stack(t) for t in zip(*sts)))
-            new["mconv"].append(torch.stack(css))
+            new["mlstm"].append(tuple(torch.stack(t)
+                                      for t in zip(*loop.fill(sts))))
+            new["mconv"].append(torch.stack(loop.fill(css)))
         else:
             sts, css = caches["mlstm"][r], caches["mconv"][r]
-            for i, p_l in enumerate(seg):
+            for i in loop:
                 out, st, cs = xlstm_mod.mlstm_decode(
-                    p_l, x, cfg, tuple(t[i] for t in sts), css[i])
+                    seg[i], x, cfg, tuple(t[i] for t in sts), css[i])
                 x = x + out
                 for t, t_new in zip(sts, st):
                     t[i].copy_(t_new)
                 css[i].copy_(cs)
-            new["mlstm"].append(sts)
-            new["mconv"].append(css)
         if n_s:
             if mode == "train":
                 x = x + xlstm_mod.slstm_scan(slayers[r], x, cfg)
@@ -520,7 +564,13 @@ def _xlstm_forward(p, cfg, x, mode, caches):
                                            return_state=True)
             x = x + out
             new["slstm"].append(st)
-    return x, (None if mode == "train" else new)
+    if mode == "train":
+        return x, None
+    if mode == "decode":
+        # the mLSTM states are written in place, the sLSTM's are new
+        return x, {"mlstm": caches["mlstm"], "mconv": caches["mconv"],
+                   "slstm": reps.fill(new["slstm"])}
+    return x, {k: reps.fill(v) for k, v in new.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -550,8 +600,9 @@ def _whisper_forward(p, cfg, tokens, enc_frames, mode, caches, pos):
         x = enc_frames.to(cd) + sinusoidal_positions(
             enc_frames.shape[1], cfg.d_model, device=dev).to(cd)[None]
         f = _remat(enc_layer, cfg) if mode == "train" else enc_layer
-        for p_l in _unstack(p["enc_blocks"]):
-            x = f(x, p_l)
+        enc = _unstack(p["enc_blocks"])
+        for i in metatrace.steps(range(len(enc)), like=x):
+            x = f(x, enc[i])
         enc_out = norm(p["enc_norm"], x, cfg.norm, cfg.norm_eps)
 
     x = embed(p["embed"], tokens,
@@ -592,27 +643,29 @@ def _whisper_forward(p, cfg, tokens, enc_frames, mode, caches, pos):
         return h + ffn(p_l["ffn"], hh, cfg.act), new_self
 
     layers = _unstack(p["dec_blocks"])
+    loop = metatrace.steps(range(len(layers)), like=x)
     if mode == "train":
         def dec_train(h, p_l):
             out = dec_layer(h, p_l)[0]
             dist.constrain_seq(out)
             return out
         f = _remat(dec_train, cfg)
-        for p_l in layers:
-            x = f(x, p_l)
+        for i in loop:
+            x = f(x, layers[i])
         new_caches = None
     elif mode == "prefill":
         ks, vs = [], []
-        for p_l in layers:
-            x, c = dec_layer(x, p_l)
+        for i in loop:
+            x, c = dec_layer(x, layers[i])
             ks.append(c["k"])
             vs.append(c["v"])
-        new_caches = {"self": {"k": torch.stack(ks), "v": torch.stack(vs)},
+        new_caches = {"self": {"k": torch.stack(loop.fill(ks)),
+                               "v": torch.stack(loop.fill(vs))},
                       "enc_out": enc_out}
     else:
         self_c = caches["self"]
-        for i, p_l in enumerate(layers):
-            x, _ = dec_layer(x, p_l, {"k": self_c["k"][i],
-                                      "v": self_c["v"][i]})
+        for i in loop:
+            x, _ = dec_layer(x, layers[i], {"k": self_c["k"][i],
+                                            "v": self_c["v"][i]})
         new_caches = {"self": self_c, "enc_out": enc_out}
     return norm(p["final_norm"], x, cfg.norm, cfg.norm_eps), new_caches

@@ -18,6 +18,10 @@ and ``model`` too under ``model_in_batch``) divide the batch, the
 reference runs the sLSTM recurrence inside ``shard_map``; here it runs
 once per distinct batch shard, on the shard's device, all with the one
 recurrent weight, so its gradient sums once over the shards.
+
+On ``meta`` tensors the loops over mLSTM chunks, sLSTM steps and batch
+shards run their first, second and last items, the second counted for
+the rest (``metatrace.steps``).
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .. import dist
+from .. import dist, metatrace
 from .layers import Linear, Norm, _lead, _param, draw, linear, norm
 from .mamba import _causal_conv
 
@@ -129,7 +133,8 @@ def mlstm_chunked(p, u, cfg, *, state=None, return_state: bool = False,
     tri = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
                                 device=u.device))
     hs = []
-    for c0 in range(0, s, chunk):
+    chunks = metatrace.steps(range(0, s, chunk), like=u)
+    for c0 in chunks:
         c = slice(c0, c0 + chunk)
         qk_, kk_, vk_, ik_ = qf[:, c], kf[:, c], vf[:, c], i_pre[:, c]
         Fc = torch.cumsum(f_log[:, c], 1)                  # (B,L,H)
@@ -157,7 +162,7 @@ def mlstm_chunked(p, u, cfg, *, state=None, return_state: bool = False,
             torch.einsum("blh,blhd,blhe->bhde", s_w, kk_, vk_)
         n = n * carry[:, :, None] + torch.einsum("blh,blhd->bhd", s_w, kk_)
         m = m_new
-    out = _mlstm_out(p, torch.cat(hs, 1), x_c, z, u)
+    out = _mlstm_out(p, torch.cat(chunks.fill(hs), 1), x_c, z, u)
     if return_state:
         return out, (C, n, m), conv_state
     return out
@@ -235,7 +240,8 @@ def _slstm_recurrence(r, x_in, state):
     h, dh = r.shape[0], r.shape[1]
     c, n, m, hp = state
     hs = []
-    for t in range(x_in.shape[1]):
+    times = metatrace.steps(range(x_in.shape[1]), like=x_in)
+    for t in times:
         rec = torch.einsum("bhd,hdk->bhk", hp, r)          # (B,H,4dh)
         pre = x_in[:, t].float().reshape(b, h, 4 * dh) + rec
         zt = torch.tanh(pre[..., 0 * dh:1 * dh])
@@ -250,7 +256,7 @@ def _slstm_recurrence(r, x_in, state):
         hp = ot * c / torch.clamp(n, min=1.0)
         m = m_new
         hs.append(hp)
-    return (c, n, m, hp), torch.stack(hs)
+    return (c, n, m, hp), torch.stack(times.fill(hs))
 
 
 def _slstm_sharded(r, x_in, state, ctx):
@@ -260,15 +266,17 @@ def _slstm_sharded(r, x_in, state, ctx):
     spec = dist.PartitionSpec(ctx.batch_axes_full, None, None)
     index = dist.NamedSharding(ctx.mesh, spec) \
         .devices_indices_map(tuple(x_in.shape))
-    shards = {}
+    first = {}
     for dev, (bs, _, _) in index.items():
-        start = bs.indices(x_in.shape[0])[0]
-        if start in shards:
-            continue
+        first.setdefault(bs.indices(x_in.shape[0])[0], (dev, bs))
+    loop = metatrace.steps(sorted(first), like=x_in)
+    parts = []
+    for start in loop:
+        dev, bs = first[start]
         on = dev.torch_device
-        shards[start] = _slstm_recurrence(
-            r.to(on), x_in[bs].to(on), tuple(t[bs].to(on) for t in state))
-    parts = [shards[k] for k in sorted(shards)]
+        parts.append(_slstm_recurrence(
+            r.to(on), x_in[bs].to(on), tuple(t[bs].to(on) for t in state)))
+    parts = loop.fill(parts)
     dev = x_in.device
     state_f = tuple(torch.cat([p[0][i].to(dev) for p in parts], 0)
                     for i in range(4))

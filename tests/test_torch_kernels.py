@@ -280,10 +280,11 @@ def test_flash_decode_rejects_what_the_reference_rejects():
         fd_kernel.flash_decode(torch.zeros(1, 3, 32),
                                torch.zeros(1, 2, 64, 32),
                                torch.zeros(1, 2, 64, 32))
+    # meta operands are a dry run's (no launch); meta beside CPU is not
     meta = torch.empty(1, 1, 64, 32, device="meta")
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="devices"):
         fd_kernel.flash_decode(torch.empty(1, 1, 32, device="meta"),
-                               meta, meta)
+                               meta, torch.zeros(1, 1, 64, 32))
 
 
 # ---------------------------------------------------------------------------
@@ -484,9 +485,10 @@ def test_flash_attention_wrapper_refuses_grad_and_other_devices():
         fa_kernel.flash_attention(x, y, y)
     with torch.no_grad():
         assert fa_kernel.flash_attention(x, y, y).shape == x.shape
+    # meta operands are a dry run's (no launch); meta beside CPU is not
     meta = torch.empty(1, 2, 16, 32, device="meta")
     with pytest.raises(ValueError, match="devices"):
-        fa_kernel.flash_attention(meta, meta, meta)
+        fa_kernel.flash_attention(meta, meta, y)
     before = fa_kernel.flash_attention.launches
     assert torch.equal(fa_kernel.flash_attention(y, y, y),
                        fa_kernel.flash_attention_plain(y, y, y))
