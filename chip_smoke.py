@@ -139,8 +139,15 @@ Phases, each of which must pass (any failure exits non-zero):
    parameter leaf changed, the learning rate ``cosine_schedule``'s.
    Prints the median step ms, tokens/s (B·S a step), peak device
    memory, model TFLOP/s (6·N·T + 6·L·B·Hq·S²·Dh, N the parameters less
-   the embedding table, T = B·S) and its share of 989 TFLOP/s, and the
-   device's idle share over a profiled step.  Then at full width in f32
+   the embedding table, T = B·S) and its share of 989 TFLOP/s, the
+   device's idle share over a profiled step and the device ms of the
+   kernels launched inside each of ``TRAIN_OPS`` (the block loops'
+   gradient gathering: ``slice_backward`` and its additions before they
+   split their operands once, ``cat``/``stack`` after).  The same for
+   the recurrent families (``TRAIN_RECURRENT``, one ``[train_recurrent]``
+   line each: xLSTM-1.3B at 8 layers, one of them sLSTM, B 2 x S 2,048;
+   Zamba2-1.2B at 7 layers, one shared-block call, B 2 x S 4,096), one
+   warm-up and 3 timed steps.  Then at full width in f32
    (2 layers, B 1 x S 1,024, TF32 off) the training path (chunked
    attention, chunked CE, remat ``full`` and ``dots``) against the plain
    one (``impl="naive"``, full-sequence logits, no remat): the loss
@@ -154,8 +161,12 @@ Phases, each of which must pass (any failure exits non-zero):
    a resume to 12 equal 12 straight steps bit for bit under
    ``torch.use_deterministic_algorithms(True)``, with
    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` set around that check only (set
-   before the first product it slowed the LLM phase's decode steps).
-   No kernel of ``csrc/`` runs here.
+   before the first product it slowed the LLM phase's decode steps);
+   and three steps of each configuration whose loss reaches no leaf of
+   one part (``TRAIN_UNREACHED``: Zamba2 below its first shared-block
+   call, DeepSeek-V2-Lite with no MoE layer) are finite, and each such
+   leaf has moments of 0 and moved by the weight decay alone, bit for
+   bit.  No kernel of ``csrc/`` runs here.
 14. MoE (main path 5, run right after phase 6, whose memory it frees):
    ``launch.serve.generate`` with the MoE family at full width, weights
    from seed 0, bf16 compute over f32 masters, B 4 prompts of 1,024
@@ -277,6 +288,7 @@ Then one JSON line of kernel results (each row's ``launches`` from phase
 """
 from __future__ import annotations
 
+import bisect
 import json
 import math
 import os
@@ -1387,14 +1399,18 @@ def obs_phase(dev) -> None:
           f"{seen['inside']} inside the wave ranges")
 
 
-def trace_summary(prof, span: str, top_n: int = 8) -> dict:
+def trace_summary(prof, span: str, top_n: int = 8, ops=()) -> dict:
     """The device's idle share inside the profiler range ``span`` (kernel,
     copy and memset time clipped to the range, over the range's length;
     None when the trace holds no device event), the device ms and the
     range's seconds, and the ``top_n`` most device ms by the operator
     that launched them (``top``: a kernel's ``External id`` names the
     innermost operator or range open at its launch) and by kernel name
-    (``top_kernels``), each row ``[name, ms, launches]``.  Read from the
+    (``top_kernels``), each row ``[name, ms, launches]``; for each
+    operator named in ``ops``, the device ms and launches of the kernels
+    launched while one was open on the launching thread, nested
+    operators included (``ops_ms``: ``aten::slice_backward`` launches
+    through ``aten::zeros`` and ``aten::copy_``).  Read from the
     profile's Chrome trace: the profiler's own exporter writes it and
     ``json`` parses it.  ``prof.events()`` and ``key_averages()`` build
     a Python object per event instead, minutes for the ~10^6 events of
@@ -1413,22 +1429,46 @@ def trace_summary(prof, span: str, top_n: int = 8) -> dict:
     names = {e["args"]["External id"]: e["name"] for e in events
              if e.get("cat") in ("cpu_op", "user_annotation") and
              "External id" in e.get("args", {})}
+    # where each operator ran (thread, start), and the open intervals of
+    # the operators asked for, by thread
+    starts = {e["args"]["External id"]: (e.get("tid"), e["ts"])
+              for e in events if e.get("cat") == "cpu_op" and
+              "External id" in e.get("args", {})} if ops else {}
+    open_ = {op: {} for op in ops}
+    for e in events:
+        if e.get("cat") == "cpu_op" and e.get("name") in open_:
+            open_[e["name"]].setdefault(e.get("tid"), []).append(
+                (e["ts"], e["ts"] + e["dur"]))
+    for by_tid in open_.values():
+        for spans in by_tid.values():
+            spans.sort()
     busy_us, by_op, by_kernel = 0.0, {}, {}
+    ops_ms = {op: [0.0, 0] for op in ops}
     for e in events:
         if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
             continue
         busy_us += max(0.0, min(e["ts"] + e["dur"], t1) - max(e["ts"], t0))
-        op = names.get(e.get("args", {}).get("External id"), e["name"])
+        ext = e.get("args", {}).get("External id")
+        op = names.get(ext, e["name"])
         for by, name in ((by_op, op), (by_kernel, e["name"])):
             row = by.setdefault(name, [0.0, 0])
             row[0] += e["dur"] / 1e3
             row[1] += 1
+        if ext not in starts:
+            continue
+        tid, ts = starts[ext]
+        for name, by_tid in open_.items():
+            spans = by_tid.get(tid, ())
+            i = bisect.bisect_right(spans, (ts, math.inf)) - 1
+            if i >= 0 and spans[i][0] <= ts < spans[i][1]:
+                ops_ms[name][0] += e["dur"] / 1e3
+                ops_ms[name][1] += 1
 
     def most(by):
         return sorted(([k, ms, n] for k, (ms, n) in by.items()),
                       key=lambda t: -t[1])[:top_n]
     out = dict(idle=None, busy_ms=None, window_s=(t1 - t0) / 1e6,
-               top=most(by_op), top_kernels=most(by_kernel))
+               top=most(by_op), top_kernels=most(by_kernel), ops_ms=ops_ms)
     if busy_us > 0.0:
         out.update(idle=1.0 - busy_us / (t1 - t0), busy_ms=busy_us / 1e3)
     return out
@@ -2959,6 +2999,27 @@ TRAIN_REDUCED = {
                 "layers ≈ 56 GB before activations)",
     "global_batch": "256 -> 2 (the train_4k shape's batch, by memory)",
 }
+# the operators whose device ms each train line reports, every kernel
+# launched inside one counted (trace_summary's ops_ms)
+TRAIN_OPS = ("aten::slice_backward", "aten::select_backward", "aten::add",
+             "aten::cat", "aten::stack")
+# the recurrent families' train steps: full width, cut in depth to one
+# sLSTM layer (xLSTM, every 8th) and one shared-block call (Zamba2, at
+# layer 6 of every 6), bf16 compute over f32 masters, remat full
+TRAIN_RECURRENT = {"xlstm-1.3b": dict(n_layers=8, batch=2, seq=2048),
+                   "zamba2-1.2b": dict(n_layers=7, batch=2, seq=4096)}
+TRAIN_RECURRENT_TIMED = 3                 # after one warm-up step
+TRAIN_RECURRENT_REDUCED = {
+    "n_layers": "xLSTM 48 -> 8 (one sLSTM layer: its loop over time is "
+                "the family's own backward), Zamba2 38 -> 7 (one call of "
+                "the shared block); the step time grows with depth",
+    "global_batch": "256 -> 2 (as [train]); xLSTM's sequence 4,096 -> "
+                    "2,048 (its sLSTM loop is host-bound, ~30 eager ops a "
+                    "step, forward, recompute and backward)",
+}
+# configurations whose loss reaches no leaf of one part (the prefix)
+TRAIN_UNREACHED = (("zamba2-1.2b", 2, "shared_"),
+                   ("deepseek-v2-lite-16b", 1, "moe_blocks."))
 # the exactness check at full width in f32: 2 layers, B 1 x S 1,024
 EXACT_LAYERS, EXACT_SEQ = 2, 1024
 # f32 against f32, the same operations summed in other orders (online
@@ -3100,14 +3161,156 @@ def train_small(dev) -> dict:
     same = _same_state(straight, resumed)
     check(same, "train: the resumed run differs from the straight run")
     return {"loss_first": first, "loss_last": last,
-            "resume_bitwise": same}
+            "resume_bitwise": same, "unreached": train_unreached(dev)}
+
+
+def train_unreached(dev) -> dict:
+    """Three steps (peak lr 1e-2, warm-up 1) of each ``TRAIN_UNREACHED``
+    configuration at ``reduced()``, B 2 x S 64: finite, and each leaf the
+    loss does not reach has moments of 0 and equals its initial value
+    decayed step by step, ``p - (p * 0.1) * lr``, bit for bit (1-D
+    leaves unchanged), as the reference's zero gradient leaves it."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch import train
+    from repro_torch.models import api
+    from repro_torch.optim import adamw_init
+
+    out = {}
+    for arch, n_layers, prefix in TRAIN_UNREACHED:
+        cfg = get_config(arch).reduced(n_layers=n_layers)
+        params = api.init_params(torch.Generator(device=dev).manual_seed(0),
+                                 cfg, device=dev)
+        want = {n: p.detach().clone() for n, p in params.named_parameters()
+                if n.startswith(prefix)}
+        opt = adamw_init(params)
+        step = train.build_train_step(cfg, peak_lr=1e-2, warmup=1,
+                                      total_steps=10)
+        data = SyntheticTokens(cfg.vocab_size, 64, 2, seed=0)
+        losses = []
+        for k in range(3):
+            batch = {"tokens": data.batch_at(k)["tokens"].to(dev)}
+            params, opt, m = step(params, opt, batch, k)
+            losses.append(float(m["loss"]))
+            check(math.isfinite(losses[-1]) and math.isfinite(
+                float(m["gnorm"])), f"train {arch}: a loss or gnorm is "
+                "not finite")
+            for w in want.values():
+                if w.ndim >= 2:
+                    w.sub_((w * 0.1) * m["lr"])
+        got = dict(params.named_parameters())
+        mu, nu = _flat_tree(opt.mu), _flat_tree(opt.nu)
+        exact = all(torch.equal(got[n].detach(), w) and
+                    not mu[n].any() and not nu[n].any()
+                    for n, w in want.items())
+        check(bool(want) and exact, f"train {arch} at {n_layers} layers: an "
+              "unreached leaf moved otherwise than by the decay")
+        out[f"{arch}/{n_layers}"] = {"loss": losses, "unreached_leaves":
+                                     len(want), "decayed_exactly": exact}
+    return out
+
+
+def train_recurrent(dev, card: str) -> None:
+    """One ``[train_recurrent]`` line for each ``TRAIN_RECURRENT`` arch:
+    ``build_train_step`` at full width, one warm-up and
+    ``TRAIN_RECURRENT_TIMED`` timed steps (the median), the peak memory,
+    and a profiled step's idle share, top operators and ``TRAIN_OPS``."""
+    import dataclasses
+    import statistics
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch import train
+    from repro_torch.models import api
+    from repro_torch.optim import adamw_init
+
+    print("[train_recurrent] reduced: " + json.dumps(
+        TRAIN_RECURRENT_REDUCED, ensure_ascii=False), flush=True)
+    for arch, shape in TRAIN_RECURRENT.items():
+        cfg = dataclasses.replace(
+            get_config(arch), n_layers=shape["n_layers"],
+            compute_dtype="bfloat16", attn_impl="chunked", remat=True,
+            remat_policy="full")
+        params = api.init_params(torch.Generator(device=dev).manual_seed(0),
+                                 cfg, device=dev)
+        n_params = api.count_params(params)
+        opt = adamw_init(params)
+        data = SyntheticTokens(cfg.vocab_size, shape["seq"], shape["batch"],
+                               seed=0)
+        step_fn = train.build_train_step(cfg)
+
+        def run(step):
+            batch = {"tokens": data.batch_at(step)["tokens"].to(dev)}
+            return step_fn(params, opt, batch, step)[2]
+
+        run(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, metrics = [], []
+        for step in range(1, TRAIN_RECURRENT_TIMED + 1):
+            t0 = time.perf_counter()
+            m = run(step)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: float(v) for k, v in m.items()})
+        peak = torch.cuda.max_memory_allocated()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            with torch.profiler.record_function("train/recurrent_step"):
+                run(TRAIN_RECURRENT_TIMED + 1)
+                torch.cuda.synchronize()
+        t = trace_summary(prof, "train/recurrent_step", top_n=8,
+                          ops=TRAIN_OPS)
+        del params, opt, prof
+        torch.cuda.empty_cache()
+        print("[train_recurrent] " + json.dumps(dict(
+            card=card, arch=arch, n_layers=cfg.n_layers, d_model=cfg.d_model,
+            compute_dtype=cfg.compute_dtype, remat=cfg.remat_policy,
+            batch=shape["batch"], seq=shape["seq"], params=n_params,
+            step_ms=statistics.median(ms), step_ms_all=ms,
+            peak_memory_bytes=peak, idle_share=t["idle"],
+            device_busy_ms=t["busy_ms"],
+            loss=[m["loss"] for m in metrics],
+            gnorm=[m["gnorm"] for m in metrics],
+            ops_ms=t["ops_ms"],
+            top_ops_ms=[[name[:40], ms_, n] for name, ms_, n in t["top"]])),
+            flush=True)
+        check(all(math.isfinite(m["loss"]) and math.isfinite(m["gnorm"])
+                  and m["gnorm"] > 0 for m in metrics),
+              f"train {arch}: a loss or gnorm is not finite, or a gnorm is 0")
 
 
 def train_phase(dev, card: str) -> None:
     """Main path 4: ``launch.train.build_train_step`` with Mistral-NeMo-12B
     at full width (4 layers), bf16 compute over f32 masters, chunked
-    attention, remat ``full``; then the f32 exactness check and the small
-    runs."""
+    attention, remat ``full``, and the recurrent families' steps; then
+    the f32 exactness check and the small runs."""
+    train_step(dev, card)
+    train_recurrent(dev, card)
+    exact = train_exactness(dev)
+    small = train_small(dev)
+    print("[train] " + json.dumps(dict(exactness=exact, small=small,
+                                       tolerances=dict(
+                                           loss_rtol=EXACT_LOSS_RTOL,
+                                           gnorm_rtol=EXACT_GNORM_RTOL,
+                                           grad_gap_of_max=EXACT_GRAD_OF_MAX)
+                                       )), flush=True)
+    for name in ("full", "dots"):
+        row = exact[name]
+        check(row["loss_rel_gap"] <= EXACT_LOSS_RTOL,
+              f"train f32 {name}: loss gap {row['loss_rel_gap']}")
+        check(row["gnorm_rel_gap"] <= EXACT_GNORM_RTOL,
+              f"train f32 {name}: gnorm gap {row['gnorm_rel_gap']}")
+        check(row["grad_gap_of_max"] <= EXACT_GRAD_OF_MAX,
+              f"train f32 {name}: gradient gap {row['grad_gap_of_max']} of "
+              "the leaf's largest")
+
+
+def train_step(dev, card: str) -> None:
+    """The ``[train]`` step: Mistral-NeMo-12B at full width (4 layers),
+    one warm-up and ``TRAIN_TIMED`` timed steps, a profiled one."""
     import dataclasses
     import statistics
     import torch
@@ -3157,7 +3360,7 @@ def train_phase(dev, card: str) -> None:
         with torch.profiler.record_function("train/step"):
             run(TRAIN_TIMED + 1)
             torch.cuda.synchronize()
-    t = trace_summary(prof, "train/step", top_n=12)
+    t = trace_summary(prof, "train/step", top_n=12, ops=TRAIN_OPS)
     idle, busy_ms, window_s = t["idle"], t["busy_ms"], t["window_s"]
     del params, opt, prof
     torch.cuda.empty_cache()
@@ -3188,6 +3391,7 @@ def train_phase(dev, card: str) -> None:
         1.0 - busy_ms / step_ms,
         loss=[m["loss"] for m in metrics],
         gnorm=[m["gnorm"] for m in metrics], lr=[m["lr"] for m in metrics],
+        ops_ms=t["ops_ms"],
         top_ops_ms=[[name[:40], ms, n] for name, ms, n in t["top"]],
         top_kernels_ms=[[name[:70], ms, n]
                         for name, ms, n in t["top_kernels"]])),
@@ -3199,24 +3403,6 @@ def train_phase(dev, card: str) -> None:
     check([m["lr"] for m in metrics] == lrs,
           f"train: lr {[m['lr'] for m in metrics]} != cosine_schedule's "
           f"{lrs}")
-
-    exact = train_exactness(dev)
-    small = train_small(dev)
-    print("[train] " + json.dumps(dict(exactness=exact, small=small,
-                                       tolerances=dict(
-                                           loss_rtol=EXACT_LOSS_RTOL,
-                                           gnorm_rtol=EXACT_GNORM_RTOL,
-                                           grad_gap_of_max=EXACT_GRAD_OF_MAX)
-                                       )), flush=True)
-    for name in ("full", "dots"):
-        row = exact[name]
-        check(row["loss_rel_gap"] <= EXACT_LOSS_RTOL,
-              f"train f32 {name}: loss gap {row['loss_rel_gap']}")
-        check(row["gnorm_rel_gap"] <= EXACT_GNORM_RTOL,
-              f"train f32 {name}: gnorm gap {row['gnorm_rel_gap']}")
-        check(row["grad_gap_of_max"] <= EXACT_GRAD_OF_MAX,
-              f"train f32 {name}: gradient gap {row['grad_gap_of_max']} of "
-              "the leaf's largest")
 
 
 PARITY_SIZES = {

@@ -62,6 +62,11 @@ def chunked_attention(q, k, v, *, causal: bool = True,
         bq, bk = sq, skv
     kv_off = skv - sq
     qf, kf, vf = q.float(), k.float(), v.float()
+    # each operand split into its blocks once, outside the loops: the
+    # backward pass then gathers the blocks' gradients once, as the
+    # reference's scan over stacked chunks does (a slice taken in the
+    # loop would write a whole-size gradient for every block)
+    k_blocks = list(zip(range(0, skv, bk), kf.split(bk, 2), vf.split(bk, 2)))
 
     def kv_step(m, l, acc, qb, kb, vb, q0, k0):
         s = torch.einsum("bhqd,bhkd->bhqk", qb, kb) * scale
@@ -80,16 +85,14 @@ def chunked_attention(q, k, v, *, causal: bool = True,
         m = torch.full((b, hq, bq), _NEG_INF, device=q.device)
         l = torch.zeros((b, hq, bq), device=q.device)
         acc = torch.zeros((b, hq, bq, dv), device=q.device)
-        for k0 in metatrace.steps(range(0, skv, bk), like=qb):
+        for k0, kb, vb in metatrace.steps(k_blocks, like=qb):
             m, l, acc = checkpoint(metatrace.frozen(kv_step), m, l, acc, qb,
-                                   kf[:, :, k0:k0 + bk],
-                                   vf[:, :, k0:k0 + bk], q0, k0,
-                                   use_reentrant=False)
+                                   kb, vb, q0, k0, use_reentrant=False)
         l = torch.where(l == 0.0, torch.ones_like(l), l)
         # cast per chunk: the output stays in the compute dtype
         return (acc / l[..., None]).to(q.dtype)
 
-    blocks = metatrace.steps(range(0, sq, bq), like=q)
+    blocks = metatrace.steps(zip(range(0, sq, bq), qf.split(bq, 2)), like=q)
     return torch.cat(blocks.fill([
-        checkpoint(metatrace.frozen(q_block), qf[:, :, q0:q0 + bq], q0,
-                   use_reentrant=False) for q0 in blocks]), dim=2)
+        checkpoint(metatrace.frozen(q_block), qb, q0, use_reentrant=False)
+        for q0, qb in blocks]), dim=2)

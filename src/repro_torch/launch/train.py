@@ -62,8 +62,7 @@ def build_train_step(cfg, *, peak_lr: float = 3e-4, warmup: int = 100,
                 t.requires_grad_(True)
             loss = api.loss_fn(params, cfg, batch)
             loss.backward()
-            grads = dist.map_placed(
-                lambda x: x.map(lambda t: t.grad), params)
+            grads = dist.map_placed(lambda x: x.map(_grad), params)
             for t in shards:
                 t.grad = None
                 t.requires_grad_(False)
@@ -71,7 +70,7 @@ def build_train_step(cfg, *, peak_lr: float = 3e-4, warmup: int = 100,
         params.requires_grad_(True)
         loss = api.loss_fn(params, cfg, batch)
         loss.backward()
-        return loss, tree_map(lambda p: p.grad, tree(params))
+        return loss, tree_map(_grad, tree(params))
 
     def train_step(params, opt_state, batch, step):
         if in_shardings is not None:
@@ -93,6 +92,13 @@ def build_train_step(cfg, *, peak_lr: float = 3e-4, warmup: int = 100,
                         for x, sh in zip(out, out_shardings))
         return out
     return train_step
+
+
+def _grad(t):
+    """``t``'s gradient; zeros where the loss does not reach ``t`` (an
+    unused shared block, a stack of zero layers), as the reference's
+    ``jax.value_and_grad`` gives them."""
+    return torch.zeros_like(t) if t.grad is None else t.grad
 
 
 def train_loop(cfg, *, steps: int, seq_len: int, global_batch: int,

@@ -191,9 +191,13 @@ def cross_entropy_loss(logits_fn, hidden, labels, mask, *,
 
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    for i in metatrace.steps(range(0, s, chunk), like=hidden):
-        m = mask[:, i:i + chunk]
-        tot = tot + checkpoint(metatrace.frozen(body), hidden[:, i:i + chunk],
-                               labels[:, i:i + chunk], m, use_reentrant=False)
+    # the hidden states split into chunks once: the backward pass gathers
+    # the chunks' gradients once (the reference's scan over stacked
+    # chunks), not one whole-size gradient a chunk
+    chunks = metatrace.steps(zip(*(t.split(chunk, 1) for t in (
+        hidden, labels, mask))), like=hidden)
+    for h, y, m in chunks:
+        tot = tot + checkpoint(metatrace.frozen(body), h, y, m,
+                               use_reentrant=False)
         cnt = cnt + m.sum()
     return tot / torch.clamp(cnt, min=1.0)

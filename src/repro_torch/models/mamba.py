@@ -145,10 +145,12 @@ def mamba_chunked(p, u, cfg, *, state=None, conv_state=None,
     tri = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
                                 device=u.device))
     ys = []
-    chunks = metatrace.steps(range(0, s, chunk), like=u)
-    for c0 in chunks:
-        c = slice(c0, c0 + chunk)
-        xk, bk, ck, dk, lk = xf[:, c], Bf[:, c], Cf[:, c], dt[:, c], la[:, c]
+    # the operands split into chunks once: the backward pass gathers the
+    # chunks' gradients once (the reference's scan), not one whole-size
+    # gradient a chunk
+    chunks = metatrace.steps(zip(*(t.split(chunk, 1) for t in (
+        xf, Bf, Cf, dt, la))), like=u)
+    for xk, bk, ck, dk, lk in chunks:
         cum = torch.cumsum(lk, 1)                              # (B,L,H)
         total = cum[:, -1]                                     # (B,H)
         # intra-chunk masked quadratic

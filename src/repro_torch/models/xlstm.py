@@ -133,11 +133,13 @@ def mlstm_chunked(p, u, cfg, *, state=None, return_state: bool = False,
     tri = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
                                 device=u.device))
     hs = []
-    chunks = metatrace.steps(range(0, s, chunk), like=u)
-    for c0 in chunks:
-        c = slice(c0, c0 + chunk)
-        qk_, kk_, vk_, ik_ = qf[:, c], kf[:, c], vf[:, c], i_pre[:, c]
-        Fc = torch.cumsum(f_log[:, c], 1)                  # (B,L,H)
+    # the operands split into chunks once: the backward pass gathers the
+    # chunks' gradients once (the reference's scan), not one whole-size
+    # gradient a chunk
+    chunks = metatrace.steps(zip(*(t.split(chunk, 1) for t in (
+        qf, kf, vf, i_pre, f_log))), like=u)
+    for qk_, kk_, vk_, ik_, fk_ in chunks:
+        Fc = torch.cumsum(fk_, 1)                          # (B,L,H)
         # intra logits D[t,s] = F_t - F_s + i_s  (s <= t)
         D = Fc[:, :, None, :] - Fc[:, None, :, :] + ik_[:, None, :, :]
         D = D.masked_fill(~tri[None, :, :, None], _NEG)
@@ -240,10 +242,13 @@ def _slstm_recurrence(r, x_in, state):
     h, dh = r.shape[0], r.shape[1]
     c, n, m, hp = state
     hs = []
-    times = metatrace.steps(range(x_in.shape[1]), like=x_in)
-    for t in times:
+    # one view a step, taken once: the backward pass stacks the steps'
+    # gradients once (the reference's scan), not one whole-size
+    # gradient a step
+    times = metatrace.steps(x_in.unbind(1), like=x_in)
+    for x_t in times:
         rec = torch.einsum("bhd,hdk->bhk", hp, r)          # (B,H,4dh)
-        pre = x_in[:, t].float().reshape(b, h, 4 * dh) + rec
+        pre = x_t.float().reshape(b, h, 4 * dh) + rec
         zt = torch.tanh(pre[..., 0 * dh:1 * dh])
         it = pre[..., 1 * dh:2 * dh]
         ft = F.logsigmoid(pre[..., 2 * dh:3 * dh])

@@ -20,12 +20,19 @@ orders):
   their largest element (measured: at most 3.6e-4 and 3.1e-4); every
   chunk of every placed leaf, replicas included, equal to the gathered
   leaf at its index;
+* Zamba2-1.2B at 2 layers, below its first shared-block call, so the
+  loss reaches none of the shared block's leaves: the same two ``fsdp``
+  steps on (2, 2) against the port's own step without a mesh from the
+  same seeded weights, at the tolerances above; each unreached leaf
+  equal to the plain step's (decayed only), its moments 0 in every
+  chunk;
 * serving under ``tp``: prefill's last-token logits and four decode steps
   (teacher tokens, so both packages decode the same tokens) within
   1e-4, the caches placed by ``cache_shardings`` and never gathered.
 """
 from __future__ import annotations
 
+import copy
 import os
 import pathlib
 import subprocess
@@ -38,6 +45,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 MESHES = {"1x4": (1, 4), "2x2": (2, 2), "4x1": (4, 1)}
 ARCHS = ("granite-moe-1b-a400m", "deepseek-v2-lite-16b")
+# an arch and depth whose loss reaches no leaf of one part (the prefix)
+UNREACHED = ("zamba2-1.2b", 2, "shared_")
 B, S, STEPS, DECODES = 4, 16, 2, 4
 MAX_LEN = S + DECODES + 8
 # a learning rate large enough that two steps move every parameter far
@@ -141,6 +150,7 @@ from repro_torch.interop import params_from_reference  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.launch.train import build_train_step  # noqa: E402
 from repro_torch.models import api  # noqa: E402
+from repro_torch.models.transformer import tree  # noqa: E402
 from repro_torch.optim import adamw_init  # noqa: E402
 
 _REF: dict = {}
@@ -231,6 +241,62 @@ def test_train_steps_under_the_mesh_match_the_reference(ref, arch,
                 np.testing.assert_allclose(got, want, rtol=0,
                                            atol=1e-3 * np.abs(want).max(),
                                            err_msg=f"{kind} {name}")
+
+
+def test_placed_step_where_the_loss_reaches_no_leaf_matches_the_plain():
+    arch, n_layers, prefix = UNREACHED
+    cfg = get_config(arch).reduced(n_layers=n_layers)
+    decoder = api.init_params(torch.Generator().manual_seed(0), cfg,
+                              device="cpu")
+    w0 = {k: v.detach().clone() for k, v in _flat(tree(decoder)).items()}
+    prompt, _ = map(torch.from_numpy, _tokens(cfg.vocab_size))
+    batch = {"tokens": prompt}
+    plain = copy.deepcopy(decoder)
+    plain_opt = adamw_init(plain)
+    step = build_train_step(cfg, **STEP_KW)
+    metrics = []
+    for i in range(1, STEPS + 1):
+        plain, plain_opt, m = step(plain, plain_opt, batch, i)
+        metrics.append(m)
+    mesh = make_mesh(MESHES["2x2"], ("data", "model"),
+                     dist.logical_devices(4, "cpu"))
+    with dist.use_mesh(mesh) as ctx:
+        p_sh = sharding.param_shardings(cfg, decoder, ctx, policy="fsdp")
+        o_sh = sharding.opt_state_shardings(p_sh, ctx)
+        b_sh = sharding.batch_shardings(cfg, batch, ctx)
+        step = build_train_step(cfg, **STEP_KW,
+                                in_shardings=(p_sh, o_sh, b_sh, None),
+                                out_shardings=(p_sh, o_sh, None))
+        p, o = decoder, adamw_init(decoder)
+        for i, want in enumerate(metrics, 1):
+            p, o, m = step(p, o, batch, i)
+            for key in ("loss", "gnorm"):
+                np.testing.assert_allclose(float(m[key]), float(want[key]),
+                                           atol=1e-4)
+    unreached = 0
+    for kind, placed, want_tree in (("trained", p, tree(plain)),
+                                    ("mu", o.mu, plain_opt.mu),
+                                    ("nu", o.nu, plain_opt.nu)):
+        want_flat = _flat(want_tree)
+        for name, leaf in _flat(placed).items():
+            got, want = dist.gather(leaf), want_flat[name].detach()
+            if name.startswith(prefix):
+                unreached += 1
+                if kind == "trained":
+                    assert torch.equal(got, want), name
+                    assert want.ndim < 2 or not torch.equal(want, w0[name])
+                else:
+                    assert not any(c.any() for c in leaf.shards.values()), \
+                        (kind, name)
+            elif kind == "trained":
+                assert torch.linalg.norm(got - want) <= \
+                    1e-3 * torch.linalg.norm(want - w0[name]), name
+            else:
+                np.testing.assert_allclose(
+                    got.numpy(), want.numpy(), rtol=0,
+                    atol=1e-3 * want.abs().max().item(),
+                    err_msg=f"{kind} {name}")
+    assert unreached
 
 
 @pytest.mark.parametrize("mesh_name", sorted(MESHES))

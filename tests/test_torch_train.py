@@ -32,6 +32,17 @@ each with its reason:
   Those elements are held to what AdamW can move them, 2.1 * sum(lr)
   apart.  The floor is read from the reference's step-1 gradients (at
   the initial weights, step 0's rate being 0).
+* the same three steps where the loss reaches no leaf of a part
+  (``UNREACHED``: Zamba2 below its first shared-block call, DeepSeek
+  with no MoE layer), from the port's seeded init carried across as the
+  reference's pytree (no reference init to compile), at the tolerances
+  above; the floor is read from the port's own step-1 gradients (within
+  the gradient tolerance of the reference's, one compile fewer); every
+  leaf of that part
+  has ``mu`` and ``nu`` exactly 0, as the reference's zero gradient
+  gives, and equals its initial value decayed by each step's own rate,
+  ``p - (0.1 * p) * lr`` in f32, bit for bit (unchanged if 1-D): the
+  reference's decay, whose rate the port computes within 2 ulp.
 * the port's resume: bit-identical to its straight run.
 """
 import functools
@@ -74,9 +85,22 @@ AUDIO = {"whisper-tiny": dict(attn_q_chunk=16, attn_k_chunk=32)}
 B, S = 2, 64
 SMALL = dict(n_layers=2, attn_q_chunk=16, attn_k_chunk=32)
 STEP_KW = dict(peak_lr=1e-2, warmup=1, total_steps=10)
+# (arch, layers) whose loss reaches no leaf of one part, and that part's
+# path prefix: Zamba2 calls its shared block first before layer 6, and
+# DeepSeek-V2-Lite's one layer is its dense one (a zero-layer MoE stack)
+UNREACHED = {"zamba2-1.2b-1": ("zamba2-1.2b", 1, "shared_"),
+             "zamba2-1.2b-2": ("zamba2-1.2b", 2, "shared_"),
+             "deepseek-v2-lite-16b-1": ("deepseek-v2-lite-16b", 1,
+                                        "moe_blocks.")}
 
 
 def _cfgs(arch, **kw):
+    if arch in UNREACHED:
+        arch, n_layers, _ = UNREACHED[arch]
+        kw = dict(n_layers=n_layers, **kw)
+        small = {k: v for k, v in SMALL.items() if k not in kw}
+        return (configs.get_config(arch).reduced(**small, **kw),
+                ref_configs.get_config(arch).reduced(**small, **kw))
     small = {**RECURRENT, **AUDIO}.get(arch, SMALL)
     return (configs.get_config(arch).reduced(**small, **kw),
             ref_configs.get_config(arch).reduced(**small, **kw))
@@ -115,7 +139,11 @@ def _flat(t, prefix=""):
 
 
 def _grads(decoder) -> dict:
-    return _flat(tree_map(lambda p: p.grad.numpy(), tree(decoder)))
+    """Each leaf's gradient, zeros where the loss does not reach it (the
+    reference's)."""
+    return _flat(tree_map(lambda p: np.zeros(p.shape, np.float32)
+                          if p.grad is None else p.grad.numpy(),
+                          tree(decoder)))
 
 
 def _port_loss_and_grads(cfg, weights, tokens):
@@ -160,6 +188,28 @@ def _reference(arch):
     return dict(out, metrics=metrics,
                 grads1=_flat(jax.tree_util.tree_map(np.asarray, grads1)),
                 stepped=_flat(jax.tree_util.tree_map(np.asarray, p)))
+
+
+@functools.cache
+def _reference_steps(case):
+    """Seeded weights (the port's init, as the reference's pytree: no
+    reference init to compile) and three of the reference's jitted train
+    steps from them (batches 0, 1, 0), with the moments they leave."""
+    cfg, ref_cfg = _cfgs(case)
+    weights = params_to_numpy(api.init_params(
+        torch.Generator().manual_seed(0), cfg, device="cpu"))
+    toks = [_tokens(ref_cfg, 1), _tokens(ref_cfg, 2)]
+    step = jax.jit(ref_train.build_train_step(ref_cfg, **STEP_KW))
+    p = jax.tree_util.tree_map(jnp.asarray, weights)
+    opt, metrics = ref_adamw_init(p), []
+    for k in range(3):
+        p, opt, m = step(p, opt, {"tokens": jnp.asarray(toks[k % 2])},
+                         jnp.int32(k))
+        metrics.append({n: float(v) for n, v in m.items()})
+    return {"weights": weights, "tokens": toks, "metrics": metrics,
+            **{name: _flat(jax.tree_util.tree_map(np.asarray, t))
+               for name, t in (("stepped", p), ("mu", opt.mu),
+                               ("nu", opt.nu))}}
 
 
 # ---------------------------------------------------------------------------
@@ -240,13 +290,15 @@ def test_loss_through_the_flash_kernel_raises_under_grad():
 
 # ---------------------------------------------------------------------------
 # whole train steps
-@pytest.mark.parametrize("arch", DENSE)
-def test_train_steps_match_reference_jit(arch):
-    ref = _reference(arch)
+def _port_steps(arch, ref):
+    """The port's three steps from the reference's weights, each step's
+    loss, gnorm and lr held to the reference's: (stepped params, opt
+    state, each step's lr)."""
     cfg, _ = _cfgs(arch)
     params = params_from_reference(ref["weights"], cfg, device="cpu")
     opt = adamw_init(params)
     step = train.build_train_step(cfg, **STEP_KW)
+    lrs = []
     for k in range(3):
         batch = {"tokens": torch.from_numpy(ref["tokens"][k % 2])}
         params, opt, m = step(params, opt, batch, k)
@@ -257,11 +309,21 @@ def test_train_steps_match_reference_jit(arch):
                                    rtol=1e-4)
         np.testing.assert_array_max_ulp(m["lr"].numpy(),
                                         np.float32(want["lr"]), maxulp=2)
+        lrs.append(m["lr"].numpy())
     assert int(opt.step) == 3
+    return _flat(params_to_numpy(params)), opt, lrs
+
+
+def _assert_stepped_like_reference(ref, got, grads1):
+    """Every stepped element within 1e-5 + 1e-4 * |p| of the reference's,
+    or, where its step-1 gradient is at its leaf's rounding floor, within
+    2.1 * sum(lr)."""
     lr_sum = sum(m["lr"] for m in ref["metrics"])
-    got = _flat(params_to_numpy(params))
     for name, want in ref["stepped"].items():
-        g = np.abs(ref["grads1"][name])
+        if not want.size:
+            assert got[name].shape == want.shape, name
+            continue
+        g = np.abs(grads1[name])
         floor = g < 1e-4 * g.max()
         gap = np.abs(got[name] - want)
         over = gap > 1e-5 + 1e-4 * np.abs(want)
@@ -269,6 +331,37 @@ def test_train_steps_match_reference_jit(arch):
             f"{name}: {int((over & ~floor).sum())} elements off, worst " \
             f"{gap[~floor].max()}"
         assert (gap[floor] <= 2.1 * lr_sum).all(), name
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_train_steps_match_reference_jit(arch):
+    ref = _reference(arch)
+    got, _, _ = _port_steps(arch, ref)
+    _assert_stepped_like_reference(ref, got, ref["grads1"])
+
+
+@pytest.mark.parametrize("case", sorted(UNREACHED))
+def test_train_steps_match_reference_where_the_loss_reaches_no_leaf(case):
+    ref = _reference_steps(case)
+    got, opt, lrs = _port_steps(case, ref)
+    cfg, _ = _cfgs(case)
+    _, grads1 = _port_loss_and_grads(cfg, ref["weights"], ref["tokens"][1])
+    _assert_stepped_like_reference(ref, got, grads1)
+    prefix = UNREACHED[case][2]
+    mu, nu = (_flat(t) for t in (opt_state_to_numpy(opt).mu,
+                                 opt_state_to_numpy(opt).nu))
+    unreached = [n for n in ref["stepped"] if n.startswith(prefix)]
+    assert unreached
+    w0 = _flat(ref["weights"])
+    for name in unreached:
+        assert not ref["mu"][name].any() and not ref["nu"][name].any(), \
+            f"{name}: the reference's loss reaches it"
+        assert not mu[name].any() and not nu[name].any(), name
+        want = w0[name].astype(np.float32)
+        if want.ndim >= 2:
+            for lr in lrs:
+                want = want - (want * np.float32(0.1)) * lr
+        np.testing.assert_array_equal(got[name], want, err_msg=name)
 
 
 def test_train_loop_resume_is_bitwise(tmp_path):
