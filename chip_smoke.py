@@ -43,7 +43,9 @@ Phases, each of which must pass (any failure exits non-zero):
    at 1,280 frames (B 16, Hq = Hkv = 6, head dim 64, non-causal): its
    encoder's self-attention (1,280 x 1,280) and its decoder's
    cross-attention (224 queries over 1,280 frames, the last query tile
-   half full), both also checked in f32 and bf16 at B 2.  ``bound_ms``
+   half full), both also checked in f32 and bf16 at B 2, and the f32
+   FFMA path at the prefill shape (which the f32 exactness checks of
+   phases 6 and 14 launch).  ``bound_ms``
    is the least time the card could take: the bytes the function must
    move over 3.35 TB/s or its operations over the peak for their type,
    67 TFLOP/s FP32 or 989 TFLOP/s bf16 on the tensor cores (H100 SXM
@@ -274,7 +276,9 @@ Phases, each of which must pass (any failure exits non-zero):
    ``generate``), decode through ``_decode_sp`` over the striped cache.
    Prints the mesh, the policy, the bytes each logical device holds,
    the bytes gathered, placed, exchanged by EP and by the stripes'
-   combine, step ms, prefill ms, decode ms and tok/s.  Checks, at full
+   combine, step ms, prefill ms, decode ms and tok/s, and the train
+   step's device ms inside ``slice_backward``, ``copy_``, ``add``,
+   ``add_`` and ``cat`` (``ops_ms``).  Checks, at full
    width in f32 with drop-free capacity and 2 layers (B 4 x 1,024): the
    loss within 1e-5 relative and every gradient leaf within 1e-4 of its
    largest against no mesh, the prefill logits and 4 decode steps within
@@ -610,6 +614,9 @@ def kernel_phase(dev) -> list[dict]:
         granite_mesh=fa_case(2, 8, 4, 1024, 1024, 64, torch.bfloat16),
         # Qwen2-VL-72B's prefill (the VLM phase): head dim 128, G 8
         qwen2_vl=fa_case(4, 64, 8, 1024, 1024, 128, torch.bfloat16),
+        # the f32 FFMA path at the prefill shape: the [llm] and [moe] f32
+        # exactness checks launch it
+        f32=fa_case(4, 32, 8, 1024, 1024, 128, torch.float32),
         # Zamba2-1.2B's shared attention block at prefill (the hybrid
         # phase): head dim 64, G 1
         zamba2=fa_case(4, 32, 32, 1024, 1024, 64, torch.bfloat16),
@@ -630,7 +637,8 @@ def kernel_phase(dev) -> list[dict]:
         # under their key
         extras = {key: row[key] for key in EXTRA_CASES if key in row}
         for w in extras.values():
-            checks.append((w["shape"], w["wrapper"], w["plain"]))
+            checks.append((w["shape"], w["wrapper"], w["plain"]) +
+                          ((w["tol"],) * 2 if "tol" in w else ()))
         err, errs = 0.0, {}
         for shape, wrapper, plain, *tol in checks:
             rtol, atol = tol or (row["rtol"], row["atol"])
@@ -685,7 +693,7 @@ def kernel_phase(dev) -> list[dict]:
 
 # a kernel row's other shapes and dtypes, each timed beside the row's own
 EXTRA_CASES = ("wide", "bf16", "bf16_wide", "granite", "granite_mesh",
-               "qwen2_vl", "zamba2", "whisper_enc", "whisper_cross")
+               "qwen2_vl", "zamba2", "whisper_enc", "whisper_cross", "f32")
 
 
 def parity_of_black_scholes(dev, gen) -> None:
@@ -1999,6 +2007,13 @@ def mesh_counters(reset: bool = False) -> dict:
     return {k: getattr(obj, attr) for k, (obj, attr) in owners.items()}
 
 
+# the operators whose device ms the mesh train line reports (every kernel
+# launched inside one counted): what each position's slices of q, k and
+# v wrote in their backward before they were split once
+MESH_TRAIN_OPS = ("aten::slice_backward", "aten::copy_", "aten::add",
+                  "aten::add_", "aten::cat")
+
+
 def mesh_train(dev, card: str, mesh) -> dict:
     """``launch.train.build_train_step``: Granite at full width and
     depth, bf16 over f32 masters, chunked attention, remat ``full``, B 4
@@ -2070,7 +2085,7 @@ def mesh_train(dev, card: str, mesh) -> dict:
             with torch.profiler.record_function(span):
                 run(MESH_TRAIN_TIMED + 1)
                 torch.cuda.synchronize()
-        t = trace_summary(prof, span, top_n=10)
+        t = trace_summary(prof, span, top_n=10, ops=MESH_TRAIN_OPS)
         del params, opt, prof
     torch.cuda.empty_cache()
     step_ms = statistics.median(ms)
@@ -2093,7 +2108,7 @@ def mesh_train(dev, card: str, mesh) -> dict:
                loss=[m["loss"] for m in metrics],
                gnorm=[m["gnorm"] for m in metrics],
                profiled_window_s=t["window_s"], device_busy_ms=t["busy_ms"],
-               idle_share=t["idle"],
+               idle_share=t["idle"], ops_ms=t["ops_ms"],
                top_ops_ms=[[name[:40], ms_, n] for name, ms_, n in t["top"]],
                top_kernels_ms=[[name[:70], ms_, n]
                                for name, ms_, n in t["top_kernels"]])

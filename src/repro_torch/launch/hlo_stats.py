@@ -124,11 +124,15 @@ def memory_stats(*, argument_size_in_bytes: int, output_size_in_bytes: int,
 
 class _Virtual:
     """Bytes standing for the items a shortened loop skipped, alive until
-    the ``count`` storages of the item that ran are freed."""
-    __slots__ = ("nbytes", "count")
+    the ``count`` storages of the item that ran are freed; ``held``: of
+    them, those that stand in for unread pieces' gradients too, and
+    ``then``: the (split, bytes) stand-ins to count once they are
+    freed."""
+    __slots__ = ("nbytes", "count", "held", "then")
 
     def __init__(self, nbytes: int, count: int):
         self.nbytes, self.count = nbytes, count
+        self.held, self.then = 0, []
 
 
 class LiveBytes(TorchDispatchMode):
@@ -141,8 +145,17 @@ class LiveBytes(TorchDispatchMode):
     Under a shortened loop (``metatrace.steps``) the item that ran stands
     for ``n`` items: what it left alive (the live bytes at its end less
     those at its start: caches, saved activations) is counted ``n - 1``
-    more times until everything it made and left alive is freed.  Its
-    peak inside is taken once, as each item's would be."""
+    more times until everything it made and left alive is freed, but an
+    output the loop collects (``metatrace``'s ``collected``) carries its
+    own ``n - 1`` copies, freed with it.  Its peak inside is taken once,
+    as each item's would be.  In the backward pass a piece of a split
+    read in a region stands for the unread pieces after it
+    (``stand_in``): from when the backward pass enters that region, their
+    gradients are counted until the split's backward has gathered them,
+    and the zeros that backward makes in their place are not.  While the
+    region's own leftovers live on, the larger of the two is counted:
+    the unrolled loop frees one item's leftovers as it makes the next
+    one's gradients, from the last item to the first."""
 
     def __init__(self):
         super().__init__()
@@ -151,6 +164,11 @@ class LiveBytes(TorchDispatchMode):
         self._order = 0
         self._alive: dict[int, list] = {}      # id -> [nbytes, order, virt]
         self._regions: list[tuple[int, int]] = []
+        # a region's first sequence number -> its leftovers' stand-in
+        self._virtual_of: dict[int, _Virtual] = {}
+        # split backward node's sequence number -> [bytes stood in, zeros
+        # still to make]
+        self._standing: dict[int, list] = {}
 
     def __enter__(self):
         metatrace.add_listener(self)
@@ -162,7 +180,11 @@ class LiveBytes(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        metatrace.entering()
         out = func(*args, **kwargs)
+        if self._standing and func is torch.ops.aten.zeros.default and \
+                self._zero_fill():
+            return out
         outs = [t for t in tree_flatten(out)[0]
                 if isinstance(t, torch.Tensor)]
         if outs:
@@ -173,6 +195,21 @@ class LiveBytes(TorchDispatchMode):
                 self._track(t.untyped_storage(), seen)
         return out
 
+    def _zero_fill(self) -> bool:
+        """Whether these zeros take an unread piece's place in a split's
+        backward (already counted as the piece standing in for it)."""
+        node = torch._C._current_autograd_node()
+        rec = None if node is None else \
+            self._standing.get(node._sequence_nr())
+        if rec is None or rec[1] == 0:
+            return False
+        rec[1] -= 1
+        return True
+
+    def _add(self, n: int) -> None:
+        self.live += n
+        self.peak = max(self.peak, self.live)
+
     def _track(self, storage, seen: set) -> None:
         key = id(storage)
         n = storage.nbytes()
@@ -181,8 +218,7 @@ class LiveBytes(TorchDispatchMode):
         self._order += 1
         self._alive[key] = [n, self._order, []]
         weakref.finalize(storage, self._free, key)
-        self.live += n
-        self.peak = max(self.peak, self.live)
+        self._add(n)
 
     def _free(self, key: int) -> None:
         rec = self._alive.pop(key, None)
@@ -192,13 +228,22 @@ class LiveBytes(TorchDispatchMode):
         for v in rec[2]:
             v.count -= 1
             if v.count == 0:
-                self.live -= v.nbytes
+                self._drop(v)
+
+    def _drop(self, v: _Virtual) -> None:
+        """``v`` freed: the stand-ins it held are counted now."""
+        self.live -= v.nbytes
+        for seq, n in v.then:
+            rec = self._standing.get(seq)
+            if rec is not None:
+                rec[0] += n
+                self._add(n)
 
     # metatrace listener
     def region_enter(self, n: int) -> None:
         self._regions.append((self.live, self._order))
 
-    def region_exit(self, n: int) -> None:
+    def region_exit(self, n: int, lo: int | None) -> None:
         live0, order0 = self._regions.pop()
         grown = self.live - live0
         if grown <= 0 or n <= 1:
@@ -214,5 +259,39 @@ class LiveBytes(TorchDispatchMode):
         v = _Virtual((n - 1) * grown, len(members))
         for rec in members:
             rec[2].append(v)
-        self.live += v.nbytes
-        self.peak = max(self.peak, self.live)
+        self._add(v.nbytes)
+        if lo is not None:
+            self._virtual_of[lo] = v
+
+    def collected(self, tensors, copies: int) -> None:
+        for t in tensors:
+            rec = self._alive.get(id(t.untyped_storage()))
+            if rec is None:
+                continue
+            for i, v in enumerate(rec[2]):
+                share = min(v.nbytes, copies * rec[0])
+                v.nbytes -= share
+                v.count -= 1
+                if v.count == 0:
+                    self._drop(v)
+                rec[2][i] = _Virtual(share, 1)
+
+    def stand_in(self, nbytes: int, node, copies: int, lo: int) -> None:
+        seq = node._sequence_nr()
+        rec = self._standing.get(seq)
+        if rec is None:
+            rec = self._standing[seq] = [0, 0]
+            node.register_hook(lambda *_: self._gathered(seq))
+        n = copies * nbytes
+        v = self._virtual_of.get(lo)
+        if v is not None and v.count > 0:
+            held = min(n, v.nbytes - v.held)
+            v.held += held
+            v.then.append((seq, held))
+            n -= held
+        rec[0] += n
+        rec[1] += copies
+        self._add(n)
+
+    def _gathered(self, seq: int) -> None:
+        self.live -= self._standing.pop(seq)[0]

@@ -49,6 +49,25 @@ Dicts a loop builds by item (by device) are completed by
 Listeners (``add_listener``) see every region open and close, with its
 trip count: the memory tracker uses that to count what an item leaves
 alive once per item it stands for.
+
+The backward pass has its own such bytes.  An item that is a piece of a
+``split``/``unbind`` (a block, a time step, a layer's weights) gets its
+gradient in the backward pass, and autograd holds it until the split's
+backward gathers every piece's gradient in one ``cat``/``stack``: the
+unrolled loop holds one gradient a piece until then, the shortened one
+only those of the pieces it read (it zero-fills the others' at the
+gather).  While a listener is open, :class:`Steps` notes the pieces of a
+split among the items it yields (a tensor, or in a tuple, list or dict)
+and the region each is read in.  The middle item stands for items
+1 .. n-2, whose backward passes the unrolled loop runs from the last to
+the first: when the backward pass enters the middle item's region, the
+pieces of items 2 .. n-2 have their gradients already.  So as the
+backward pass first runs a node made in a region where a piece was read
+(:func:`entering`, called by the listener before each op), the listeners
+hear (``stand_in``) how many unread pieces that piece stands for: those
+that follow it, up to the next piece read.  A split of which the loops
+read one piece only is not a loop's split, and stands for nothing;
+nothing is added to the autograd graph.
 """
 from __future__ import annotations
 
@@ -60,8 +79,8 @@ import threading
 import torch
 
 __all__ = ["steps", "Steps", "multiplier", "frozen", "on_meta",
-           "fill_keys", "account", "add_listener", "remove_listener",
-           "clear"]
+           "fill_keys", "account", "entering", "add_listener",
+           "remove_listener", "clear"]
 
 _state = threading.local()
 # regions of autograd sequence numbers, closed, sorted by ``lo``:
@@ -72,6 +91,17 @@ _memo: dict[int, int] = {}
 _listeners: list = []
 _counters: list = []
 _lock = threading.Lock()
+# split/unbind backward nodes whose pieces the loops read, by sequence
+# number: (how many pieces, the pieces read); the reads made inside a
+# region, by the region's first sequence number: [(node, piece, bytes)];
+# the (node, piece) pairs whose stand-ins the listeners have heard; the
+# regions of the reads not yet heard, as a tree (built when the backward
+# pass first looks)
+_GATHERS = ("SplitBackward0", "SplitWithSizesBackward0", "UnbindBackward0")
+_read: dict[int, tuple[int, set]] = {}
+_pending: dict[int, list] = {}
+_heard: set = set()
+_tree: list = []
 
 
 def on_meta(*tensors) -> bool:
@@ -85,6 +115,15 @@ def _stack() -> list:
     s = getattr(_state, "stack", None)
     if s is None:
         s = _state.stack = []
+    return s
+
+
+def _opened() -> list:
+    """The first sequence numbers of the open regions, innermost last
+    (None for a region opened with gradients off)."""
+    s = getattr(_state, "opened", None)
+    if s is None:
+        s = _state.opened = []
     return s
 
 
@@ -145,12 +184,14 @@ def _region(n: int):
     for obj in list(_listeners):
         obj.region_enter(n)
     _stack().append(n)
+    _opened().append(lo)
     try:
         yield
     finally:
         _stack().pop()
+        _opened().pop()
         for obj in list(_listeners):
-            obj.region_exit(n)
+            obj.region_exit(n, lo)
         if grad:
             hi = _next_seq() - 2          # the closing probe took one
             if hi >= lo:
@@ -190,18 +231,23 @@ class Steps:
     ``short`` says whether the shortcut is taken."""
 
     def __init__(self, items, like):
-        self.items = list(items)
+        # a sequence (a range, a model's layers) is indexed as the loop
+        # runs, so that a shortened loop makes only the items it runs
+        self.items = items if hasattr(items, "__getitem__") and \
+            hasattr(items, "__len__") and not isinstance(items, dict) \
+            else list(items)
         self.n = len(self.items)
         self.short = self.n > 3 and on_meta(like)
 
     def __iter__(self):
         if not self.short:
-            yield from self.items
+            for i in range(self.n):
+                yield _noted(self.items[i])
             return
-        yield self.items[0]
+        yield _noted(self.items[0])
         with _region(self.n - 2):
-            yield self.items[1]
-        yield self.items[-1]
+            yield _noted(self.items[1])
+        yield _noted(self.items[-1])
 
     def fill(self, outs: list) -> list:
         """The per-item outputs of the items run (three when short, or
@@ -211,6 +257,8 @@ class Steps:
         if not self.short:
             return outs
         head, (mid, last) = outs[:-2], outs[-2:]
+        for obj in list(_listeners):
+            obj.collected(_leaves(mid), self.n - 3)
         return head + [mid] + [_detached(mid) for _ in range(self.n - 3)] \
             + [last]
 
@@ -233,6 +281,16 @@ def fill_keys(out: dict, keys) -> dict:
     return {k: out.get(k, some) for k in keys}
 
 
+def _leaves(tree) -> list:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return []
+
+
 def _detached(tree):
     if isinstance(tree, torch.Tensor):
         return tree.detach()
@@ -241,6 +299,103 @@ def _detached(tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_detached(v) for v in tree)
     return tree
+
+
+def _noted(item):
+    """``item``, each piece of a split in it (a tensor, or in a tuple,
+    list or dict) noted as read (see the module docstring) while a
+    listener is open."""
+    if not _listeners:
+        return item
+    if isinstance(item, torch.Tensor):
+        _note(item)
+    elif isinstance(item, dict):
+        for v in item.values():
+            _noted(v)
+    elif isinstance(item, (tuple, list)):
+        for x in item:
+            _noted(x)
+    return item
+
+
+def _note(t) -> None:
+    """Note ``t`` as read, when it is a ``meta`` piece of a split of more
+    than one piece and requires grad, and the region it is read in; a
+    recompute's reads (a checkpointed function's forward pass run again
+    in the backward pass) make nothing the backward pass runs, and are
+    not noted."""
+    node = t.grad_fn
+    if node is None or node.name() not in _GATHERS or not on_meta(t) \
+            or not torch.is_grad_enabled() \
+            or torch._C._current_autograd_node() is not None:
+        return
+    n = len(node._input_metadata)
+    if n < 2:
+        return
+    _read.setdefault(node._sequence_nr(), (n, set()))[1].add(t.output_nr)
+    opened = _opened()
+    if opened and opened[-1] is not None:
+        _pending.setdefault(opened[-1], []).append(
+            (node, t.output_nr, t.numel() * t.element_size()))
+        _tree.clear()
+
+
+def _stands_for(node, slot: int) -> int:
+    """How many pieces of ``node``'s split no loop read that piece
+    ``slot`` stands for: those after it up to the next piece read, and,
+    for the first piece read, those before it; none where one piece
+    only was read."""
+    n, read = _read[node._sequence_nr()]
+    if len(read) < 2:
+        return 0
+    stop = min((j for j in read if j > slot), default=n)
+    return stop - slot - 1 + (slot if slot == min(read) else 0)
+
+
+def _pending_tree() -> list:
+    """The regions of the reads not yet heard: their first and last
+    sequence numbers, sorted, and each one's innermost enclosing one's
+    index (-1 for none); regions nest or are disjoint."""
+    los = sorted(_pending)
+    his, parent, open_ = [], [], []
+    for lo in los:
+        i = bisect.bisect_left(_los, lo)
+        hi = _regions[i][1] if i < len(_los) and _los[i] == lo else lo - 1
+        while open_ and his[open_[-1]] < lo:
+            open_.pop()
+        parent.append(open_[-1] if open_ else -1)
+        open_.append(len(his))
+        his.append(hi)
+    return [los, his, parent]
+
+
+def entering() -> None:
+    """Called by a listener before each op.  When the backward pass runs
+    a node made in a region where pieces were read, the first time, the
+    listeners hear each piece's stand-ins (``stand_in``)."""
+    if not _pending:
+        return
+    node = torch._C._current_autograd_node()
+    if node is None:
+        return
+    seq = node._sequence_nr()
+    if not _tree:
+        _tree.extend(_pending_tree())
+    los, his, parent = _tree
+    i = bisect.bisect_right(los, seq) - 1
+    while i >= 0:
+        if his[i] >= seq:
+            lo = los[i]
+            for split, slot, nbytes in _pending.pop(lo, ()):
+                key = (split._sequence_nr(), slot)
+                if key in _heard:
+                    continue
+                _heard.add(key)
+                copies = _stands_for(split, slot)
+                if copies:
+                    for obj in list(_listeners):
+                        obj.stand_in(nbytes, split, copies, lo)
+        i = parent[i]
 
 
 def account(fn, *args, **kwargs) -> None:
@@ -253,8 +408,14 @@ def account(fn, *args, **kwargs) -> None:
 
 
 def add_listener(obj) -> None:
-    """``obj.region_enter(n)`` and ``obj.region_exit(n)`` are called as
-    each region opens and closes."""
+    """``obj.region_enter(n)`` and ``obj.region_exit(n, lo)`` are called
+    as each region opens and closes (``lo``: its first sequence number,
+    None with gradients off), ``obj.collected(tensors, copies)`` as
+    :meth:`Steps.fill` makes ``copies`` stand-ins of the middle item's
+    outputs, and ``obj.stand_in(nbytes, node, copies, lo)`` as the
+    backward pass enters the region ``lo`` where a piece of ``nbytes`` of
+    ``node``'s split was read, that stands for ``copies`` unread pieces
+    until ``node`` runs."""
     _listeners.append(obj)
 
 
@@ -268,3 +429,7 @@ def clear() -> None:
         _los.clear()
         _regions.clear()
         _memo.clear()
+        _read.clear()
+        _pending.clear()
+        _heard.clear()
+        _tree.clear()

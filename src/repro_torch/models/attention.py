@@ -33,7 +33,7 @@ from torch import nn
 from .. import dist, metatrace
 from ..kernels.flash_attention import ops as fa_ops
 from . import rope as rope_mod
-from .layers import Linear, draw, linear
+from .layers import Linear, draw, joined, linear, pieces
 
 _NEG_INF = -1e30
 
@@ -96,29 +96,84 @@ def attend(q, k, v, spec, *, causal: bool, impl: str, q_chunk: int,
            k_chunk: int, scale: float | None = None):
     """``fa_ops.attention`` over q (B, Hq, Sq, D) and k, v (B, Hkv, Skv,
     D*): one call with no spec (no mesh, or no axis divides); under the
-    ambient mesh one call per mesh position on the chunk of q that
-    ``spec`` (``dist.constrain_heads``' of q) gives it, with the KV heads
-    its query heads read, each chunk made contiguous for the kernel.
-    Where a chunk's query heads do not cover whole groups of G, each
-    query head gets its own KV head (group 1 in the call).  The output
-    (B, Hq, Sq, Dv) is assembled on q's device."""
+    ambient mesh one call per mesh position on the (batch, head) chunk of
+    q that ``spec`` (``dist.constrain_heads``' of q) gives it, with the KV
+    heads its query heads read, each chunk made contiguous on the
+    position's device for the kernel.  Where a chunk's query heads do not
+    cover whole groups of G, each query head gets its own KV head (group
+    1 in the call), taken by one index for all chunks before the loops.
+    The output (B, Hq, Sq, Dv) is assembled on q's device.
+
+    Each operand is split once, before the loops, into the distinct
+    chunks (along batch, then along heads), and the output is the
+    chunks' results concatenated: the backward pass gathers each
+    operand's gradient in one ``cat``, as the reference's partitioned
+    program writes each device's shard.  Positions that hold the same
+    chunk (a replicated axis) read that chunk's pieces; the first one's
+    result is the chunk's, the others' backward passes run on a zero
+    gradient, as each replica computes its own."""
     kw = dict(causal=causal, scale=scale, impl=impl, q_chunk=q_chunk,
               k_chunk=k_chunk)
     if spec is None:
         return fa_ops.attention(q, k, v, **kw)
     index = dist.NamedSharding(dist.current().mesh, spec) \
         .devices_indices_map(tuple(q.shape))
-    g = q.shape[1] // k.shape[1]
-    out = q.new_empty(tuple(q.shape[:3]) + (v.shape[-1],))
-    for dev, (bs, hs, _, _) in metatrace.steps(index.items(), like=q):
-        h0, h1, _ = hs.indices(q.shape[1])
-        kvh = slice(h0 // g, h1 // g) if h0 % g == 0 and (h1 - h0) % g == 0 \
-            else torch.arange(h0, h1, device=k.device) // g
+    b, hq = q.shape[:2]
+    g = hq // k.shape[1]
+    # the positions that hold each chunk, by (batch start, head start)
+    holders: dict[tuple, list] = {}
+    for dev, (bs, hs, _, _) in index.items():
+        holders.setdefault((bs.indices(b)[0], hs.indices(hq)[0]), []) \
+            .append(dev)
+    b0s = sorted({c[0] for c in holders})
+    h0s = sorted({c[1] for c in holders})
+    nh = len(h0s)
+    if (hq // nh) % g:
+        # a chunk splits a group: every query head its own KV head
+        kv = torch.arange(hq, device=k.device) // g
+        k, v = (t.index_select(1, kv) for t in (k, v))
+    rows = metatrace.steps(zip(b0s, *(pieces(t, len(b0s), 0)
+                                      for t in (q, k, v))), like=q)
+    out_rows = []
+    for b0, qb, kb, vb in rows:
+        cols = metatrace.steps(zip(h0s, *(pieces(t, nh, 1)
+                                          for t in (qb, kb, vb))), like=q)
+        outs = []
+        for h0, qc, kc, vc in cols:
+            outs.append(_on_holders(holders[b0, h0], qc, kc, vc, kw,
+                                    q.device))
+        out_rows.append(joined(cols.fill(outs), 1))
+    return joined(rows.fill(out_rows), 0)
+
+
+def _on_holders(devs, qc, kc, vc, kw, home):
+    """The chunk's attention on each device that holds it (its operands
+    made contiguous there), returned on ``home``: the first device's
+    result, the others' each reached by a zero gradient.  A replica's
+    result is dropped as soon as it is taken, so that every replica
+    leaves alive only what its backward pass saves."""
+    def run(dev):
         on = dev.torch_device
-        qc, kc, vc = (t.to(on).contiguous()
-                      for t in (q[bs, hs], k[bs][:, kvh], v[bs][:, kvh]))
-        out[bs, hs] = fa_ops.attention(qc, kc, vc, **kw).to(out.device)
+        return fa_ops.attention(*(t.to(on).contiguous()
+                                  for t in (qc, kc, vc)), **kw).to(home)
+    loop = iter(metatrace.steps(devs, like=qc))
+    out = run(next(loop))
+    for dev in loop:
+        out = _Replica.apply(out, run(dev))
     return out
+
+
+class _Replica(torch.autograd.Function):
+    """``kept``; the backward pass hands ``replica`` (an equal result) a
+    zero gradient, made just before the replica's own backward runs."""
+
+    @staticmethod
+    def forward(ctx, kept, replica):
+        return kept.view_as(kept)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, torch.zeros_like(grad)
 
 
 def _attend(q, k, v, spec, cfg, causal):

@@ -35,6 +35,18 @@ def _lead(layers: int | None) -> tuple:
     return () if layers is None else (layers,)
 
 
+def pieces(t, n: int, dim: int) -> tuple:
+    """``t`` in ``n`` equal pieces along ``dim`` (itself when n is 1): an
+    operand that a loop over mesh positions reads chunk by chunk, split
+    once, so that the backward pass gathers its gradient in one ``cat``."""
+    return (t,) if n == 1 else t.split(t.shape[dim] // n, dim)
+
+
+def joined(parts, dim: int):
+    """``parts`` concatenated along ``dim`` (the one part itself)."""
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+
+
 # -- parameter containers -----------------------------------------------------
 class Linear(nn.Module):
     """``init_linear``: ``w`` (d_in, d_out), truncated normal in [-2, 2]

@@ -26,7 +26,10 @@ A chunk that moves between two logical devices is copied, even on one
 torch device; ``moe_ffn_ep.exchanged_bytes`` counts the bytes copied.
 Expert weights placed by the EP layout (``api.prepare`` pins them, as
 the reference's ``_prep_stack`` does) are read from each device's own
-chunk; unplaced ones are sliced per device.  Everything is
+chunk; unplaced ones are split once into the EP ranks' shares, and the
+tokens once into their blocks, and the output is the blocks'
+concatenation: the backward pass gathers each gradient in one ``cat``
+instead of writing a whole-size one per device.  Everything is
 differentiable.  On ``meta`` tensors the loop over EP groups runs its
 first, second and last groups, the second counted for the rest
 (``metatrace.steps``).
@@ -41,7 +44,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import dist, metatrace
-from .layers import FFN, Linear, _lead, _param, draw, ffn, linear
+from .layers import (FFN, Linear, _lead, _param, draw, ffn, joined, linear,
+                     pieces)
 
 __all__ = ["MoE", "init_moe", "moe_ffn_ref", "moe_ffn_ep", "moe_ffn",
            "load_balance_loss"]
@@ -241,30 +245,48 @@ def moe_ffn_ep(p, x, cfg, *, capacity_factor: float | None = None):
             return {k: on(v, dev) for k, v in t.items()}
         return t.to(dev.torch_device)
 
-    def expert_chunk(w, dev):
+    # the operands split once into their distinct chunks, so that the
+    # backward pass gathers each gradient in one cat: the experts into
+    # the EP ranks' shares, the tokens into rows over the data axes (an
+    # EP group's), each row into blocks over EP by the group that reads it
+    shares = {k: p[k].split(e_l, 0) for k in ("gate", "up", "down")
+              if not isinstance(p[k], dist.Placed)}
+
+    def expert_chunk(k, dev):
+        w = p[k]
         if not isinstance(w, dist.Placed):
-            return on(w[w_index[dev]], dev)
+            return on(shares[k][w_index[dev][0].indices(e)[0] // e_l], dev)
         if not w.laid_out_as(w_sharding):
             raise ValueError(f"expert weights placed as {w.sharding.spec} "
                              f"are not the EP layout {w_sharding.spec}")
         return w.shards[dev]
 
+    def start(dev):
+        bs, ss, _ = x_index[dev]
+        return bs.indices(x.shape[0])[0], ss.indices(x.shape[1])[0]
+
+    b0s = sorted({start(dev)[0] for dev in x_index})
+    s0s = sorted({start(dev)[1] for dev in x_index})
     # every position holds an equal shard, so one capacity for all
-    b_l, s_l, d = x[next(iter(x_index.values()))].shape
+    b_l, s_l, d = x.shape[0] // len(b0s), x.shape[1] // len(s0s), x.shape[2]
     n_l = b_l * s_l
     capacity = _capacity(cf, n_l, cfg)
+    rows = pieces(x, len(b0s), 0)
+
     # the two all_to_alls: each device sends and receives (E, C, d)
     for _ in range(2):
         dist.record_exchange("all-to-all",
                              e * capacity * d * x.element_size(), n_ep)
-    out = x.new_zeros(x.shape)
-    written = set()
-    for group in metatrace.steps(groups, like=x):
+    loop = metatrace.steps([(g, rows[b0s.index(start(g[0])[0])])
+                            for g in groups], like=x)
+    outs = []
+    for group, row in loop:
         group = list(group)
+        blocks = pieces(row, len(s0s), 1)
         # per rank: route and dispatch its tokens into (E, C, d) buckets
         local = []
         for dev in group:
-            xt = on(x[x_index[dev]], dev).reshape(n_l, d)
+            xt = on(blocks[s0s.index(start(dev)[1])], dev).reshape(n_l, d)
             topv, topi, _ = _router({"router": on(p["router"], dev)}, xt,
                                     cfg)
             buf, slot, keep = _dispatch_local(xt, topi, e, capacity,
@@ -272,30 +294,32 @@ def moe_ffn_ep(p, x, cfg, *, capacity_factor: float | None = None):
             local.append((xt, topv, slot, keep, buf))
         # send expert buckets to their owners: rank i's experts
         # [j*E_l, (j+1)*E_l) go to rank j, concatenated over i
-        recv = _exchange([[r[4][j * e_l:(j + 1) * e_l] for j in range(n_ep)]
-                          for r in local], group)
+        recv = _exchange([r[4].split(e_l, 0) for r in local], group)
         back = []
         for j, dev in enumerate(group):
             # (n_ep, E_l, C, d) -> (E_l, n_ep*C, d)
             rj = recv[j].reshape(n_ep, e_l, capacity, d).transpose(0, 1) \
                 .reshape(e_l, n_ep * capacity, d)
-            w = [expert_chunk(p[k], dev) for k in ("gate", "up", "down")]
+            w = [expert_chunk(k, dev) for k in ("gate", "up", "down")]
             ye = _expert_ffn(rj, *w, x.dtype)
             # reverse route: (E_l, n_ep, C, d) -> one chunk per source rank
             back.append(list(ye.reshape(e_l, n_ep, capacity, d)
                              .transpose(0, 1)))
         mine = _exchange(back, group)
+        outs.append([])
         for dev, (xt, topv, slot, keep, _), yi in zip(group, local, mine):
             o = _unscatter_local(yi.reshape(e * capacity, d), slot, keep,
                                  topv, n_l, cfg.top_k, x.dtype)
             if cfg.n_shared_experts:
                 o = o + _shared({"shared": on(p["shared"], dev)}, xt)
-            # a block replicated over EP (decode) is written once
-            key = tuple((sl.start, sl.stop) for sl in x_index[dev])
-            if key not in written:
-                written.add(key)
-                out[x_index[dev]] = o.reshape(b_l, s_l, d).to(x.device)
-    return out
+            outs[-1].append(o.reshape(b_l, s_l, d).to(x.device))
+    # each block's output, from the first device that holds it (a block
+    # replicated over EP, in decode, is taken once)
+    block = {}
+    for group, os in zip(groups, loop.fill(outs)):
+        for dev, o in zip(group, os):
+            block.setdefault(start(dev), o)
+    return joined([joined([block[b0, s0] for s0 in s0s], 1) for b0 in b0s], 0)
 
 
 moe_ffn_ep.exchanged_bytes = 0

@@ -416,7 +416,6 @@ def _unstack(stacked) -> _Layers:
 def _run_attn_stack(stacked, x, cfg, positions, mode, caches, pos, *,
                     moe_layer: bool):
     layers = _unstack(stacked)
-    loop = metatrace.steps(range(len(layers)), like=x)
     if mode == "train":
         def body(h, p_l):
             out = block_apply(p_l, h, cfg, positions, moe_layer=moe_layer,
@@ -424,9 +423,10 @@ def _run_attn_stack(stacked, x, cfg, positions, mode, caches, pos, *,
             dist.constrain_seq(out)
             return out
         f = _remat(body, cfg)
-        for i in loop:
-            x = f(x, layers[i])
+        for p_l in metatrace.steps(layers, like=x):
+            x = f(x, p_l)
         return x, None
+    loop = metatrace.steps(range(len(layers)), like=x)
     if mode == "prefill":
         # whatever cache leaves the block returns (k/v, or c_kv/k_rope),
         # stacked over the layers
@@ -482,8 +482,8 @@ def _zamba_forward(p, cfg, x, positions, mode, caches, pos):
         seg = layers[bounds[si]:bounds[si + 1]]
         loop = metatrace.steps(range(len(seg)), like=x)
         if mode == "train":
-            for i in loop:
-                x = mamba_train(x, seg[i])
+            for p_l in metatrace.steps(seg, like=x):
+                x = mamba_train(x, p_l)
         elif mode == "prefill":
             sts, css = [], []
             for i in loop:
@@ -528,13 +528,14 @@ def _xlstm_forward(p, cfg, x, mode, caches):
     mlstm_train = _remat(mlstm_train, cfg)
 
     # the repeats are alike (per mLSTM layers, then one sLSTM)
-    reps = metatrace.steps(range(n_s if n_s else 1), like=x)
-    for r in reps:
+    reps = metatrace.steps(list(enumerate(slayers)) if n_s else [(0, None)],
+                           like=x)
+    for r, s_l in reps:
         seg = mlayers[r * per:min((r + 1) * per, n_m)]
         loop = metatrace.steps(range(len(seg)), like=x)
         if mode == "train":
-            for i in loop:
-                x = mlstm_train(x, seg[i])
+            for p_l in metatrace.steps(seg, like=x):
+                x = mlstm_train(x, p_l)
         elif mode == "prefill":
             sts, css = [], []
             for i in loop:
@@ -557,10 +558,10 @@ def _xlstm_forward(p, cfg, x, mode, caches):
                 css[i].copy_(cs)
         if n_s:
             if mode == "train":
-                x = x + xlstm_mod.slstm_scan(slayers[r], x, cfg)
+                x = x + xlstm_mod.slstm_scan(s_l, x, cfg)
                 continue
             state = caches["slstm"][r] if mode == "decode" else None
-            out, st = xlstm_mod.slstm_scan(slayers[r], x, cfg, state=state,
+            out, st = xlstm_mod.slstm_scan(s_l, x, cfg, state=state,
                                            return_state=True)
             x = x + out
             new["slstm"].append(st)
@@ -600,9 +601,8 @@ def _whisper_forward(p, cfg, tokens, enc_frames, mode, caches, pos):
         x = enc_frames.to(cd) + sinusoidal_positions(
             enc_frames.shape[1], cfg.d_model, device=dev).to(cd)[None]
         f = _remat(enc_layer, cfg) if mode == "train" else enc_layer
-        enc = _unstack(p["enc_blocks"])
-        for i in metatrace.steps(range(len(enc)), like=x):
-            x = f(x, enc[i])
+        for p_l in metatrace.steps(_unstack(p["enc_blocks"]), like=x):
+            x = f(x, p_l)
         enc_out = norm(p["enc_norm"], x, cfg.norm, cfg.norm_eps)
 
     x = embed(p["embed"], tokens,
@@ -650,8 +650,8 @@ def _whisper_forward(p, cfg, tokens, enc_frames, mode, caches, pos):
             dist.constrain_seq(out)
             return out
         f = _remat(dec_train, cfg)
-        for i in loop:
-            x = f(x, layers[i])
+        for p_l in metatrace.steps(layers, like=x):
+            x = f(x, p_l)
         new_caches = None
     elif mode == "prefill":
         ks, vs = [], []

@@ -30,7 +30,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import dist, metatrace
-from .layers import Linear, Norm, _lead, _param, draw, linear, norm
+from .layers import (Linear, Norm, _lead, _param, draw, joined, linear, norm,
+                     pieces)
 from .mamba import _causal_conv
 
 __all__ = ["MLSTM", "SLSTM", "init_mlstm", "init_slstm", "mlstm_chunked",
@@ -267,25 +268,30 @@ def _slstm_recurrence(r, x_in, state):
 def _slstm_sharded(r, x_in, state, ctx):
     """The recurrence once per distinct shard of the batch over
     ``ctx.batch_axes_full``, on the shard's device; the shards' states
-    and outputs concatenated in batch order on ``x_in``'s device."""
+    and outputs concatenated in batch order on ``x_in``'s device.  The
+    pre-activations and the state are split into the shards once, before
+    the loop: the backward pass gathers the shards' gradients in one
+    ``cat``."""
     spec = dist.PartitionSpec(ctx.batch_axes_full, None, None)
     index = dist.NamedSharding(ctx.mesh, spec) \
         .devices_indices_map(tuple(x_in.shape))
     first = {}
     for dev, (bs, _, _) in index.items():
-        first.setdefault(bs.indices(x_in.shape[0])[0], (dev, bs))
-    loop = metatrace.steps(sorted(first), like=x_in)
+        first.setdefault(bs.indices(x_in.shape[0])[0], dev)
+    starts = sorted(first)
+    loop = metatrace.steps(zip(starts, *(
+        pieces(t, len(starts), 0) for t in (x_in,) + tuple(state))),
+        like=x_in)
     parts = []
-    for start in loop:
-        dev, bs = first[start]
-        on = dev.torch_device
+    for start, x_s, *state_s in loop:
+        on = first[start].torch_device
         parts.append(_slstm_recurrence(
-            r.to(on), x_in[bs].to(on), tuple(t[bs].to(on) for t in state)))
+            r.to(on), x_s.to(on), tuple(t.to(on) for t in state_s)))
     parts = loop.fill(parts)
     dev = x_in.device
-    state_f = tuple(torch.cat([p[0][i].to(dev) for p in parts], 0)
+    state_f = tuple(joined([p[0][i].to(dev) for p in parts], 0)
                     for i in range(4))
-    return state_f, torch.cat([p[1].to(dev) for p in parts], 1)
+    return state_f, joined([p[1].to(dev) for p in parts], 1)
 
 
 def slstm_scan(p, u, cfg, *, state=None, return_state: bool = False):

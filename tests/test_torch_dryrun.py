@@ -85,20 +85,22 @@ def test_memory_stats_keys_and_total():
 
 # ---------------------------------------------------------------------------
 # predictions on meta, short and unrolled, and the same steps on the CPU
-def _cfg(arch):
-    return get_config(arch).reduced()
+def _cfg(arch, **kw):
+    return get_config(arch).reduced(**kw)
 
 
-def _meta_tokens():
-    return torch.empty((B, S), dtype=torch.int32, device="meta")
+def _meta_tokens(seq=S):
+    return torch.empty((B, seq), dtype=torch.int32, device="meta")
 
 
-def _predict(arch, mode):
-    """``{step: trace}`` and the bytes held, predicted on (2, 2) meta."""
-    cfg = _cfg(arch)
-    mesh = dryrun.meta_mesh((2, 2))
+def _predict(arch, mode, seq=S, mesh=(2, 2), **kw):
+    """``{step: trace}`` and the bytes held, predicted on ``mesh`` meta
+    devices; ``kw`` overrides the config."""
+    cfg = _cfg(arch, **kw)
+    mesh = dryrun.meta_mesh(mesh)
     if mode == "train":
-        tr, held = dryrun.predict_train(cfg, mesh, {"tokens": _meta_tokens()})
+        tr, held = dryrun.predict_train(cfg, mesh,
+                                        {"tokens": _meta_tokens(seq)})
         return {"train": tr}, held
     return dryrun.predict_serve(cfg, mesh, _meta_tokens(), max_len=MAX_LEN)
 
@@ -116,16 +118,31 @@ def _prefill_trace(arch):
     return {"prefill": tr}, {}
 
 
+# xlstm-train: a backward pass through the layers', the mLSTM chunks' and
+# the sLSTM time steps' shortened loops; mistral-blocks-train: four
+# layers (the middle ones' leftovers and their weights' gradients overlap
+# in their backward passes), S 128 in four key blocks of 32 (a small
+# vocabulary, so that the loss does not hold the peak);
+# qwen-replicas-train: 6 heads that the 8-wide model axis of a (1, 8)
+# mesh does not divide, so that the chunk runs on the 8 positions that
+# hold it, each query block reading every key block
 CELLS = {"granite-train": (GRANITE, "train"),
          "granite-serve": (GRANITE, "serve"),
          "deepseek-serve": (DEEPSEEK, "serve"),
          "zamba2-prefill": ("zamba2-1.2b", "prefill"),
-         "xlstm-prefill": ("xlstm-1.3b", "prefill")}
+         "xlstm-prefill": ("xlstm-1.3b", "prefill"),
+         "xlstm-train": ("xlstm-1.3b", "train"),
+         "mistral-blocks-train": ("mistral-nemo-12b", "train", dict(
+             seq=128, n_layers=4, attn_q_chunk=128, attn_k_chunk=32,
+             vocab_size=32)),
+         "qwen-replicas-train": ("qwen1.5-4b", "train", dict(
+             seq=128, mesh=(1, 8), n_layers=1, n_heads=6, n_kv_heads=6,
+             vocab_size=32))}
 
 
-def _traced(arch, mode):
+def _traced(arch, mode, kw=None):
     return _prefill_trace(arch) if mode == "prefill" else \
-        _predict(arch, mode)
+        _predict(arch, mode, **(kw or {}))
 
 
 @pytest.fixture(scope="module")
@@ -252,6 +269,53 @@ def test_live_bytes_counts_what_a_step_allocates():
     assert a_gone == 2048 and live.peak == 4096 and live.live == 0
 
 
+def _loop_peak(kind: str, n: int = 8) -> tuple[int, int]:
+    """A loop over ``n`` pieces of a ``meta`` tensor, on its own:
+    (peak, left) of its forward and backward passes.  ``split`` and
+    ``unbind``: each piece's gradient is held until the split's backward
+    gathers them, and the first piece's backward (the last to run)
+    makes a large temporary; ``gathered``: a split whose gathering
+    ``cat`` is the peak; ``collected``: the items' outputs are
+    concatenated and dropped while what each item saved lives on, then
+    a large temporary."""
+    x = torch.empty(n, 16, 64, device="meta", requires_grad=True)
+    w = torch.empty(64, 64, device="meta", requires_grad=True)
+    metatrace.clear()
+    with hlo_stats.LiveBytes() as live:
+        pieces = x.split(1, 0) if kind in ("split", "gathered") \
+            else x.unbind(0)
+        loop = metatrace.steps(pieces, like=x)
+        outs = []
+        for p in loop:
+            if kind == "collected":
+                outs.append((p * 2).sin())
+            elif kind == "gathered":
+                outs.append(p.sin())
+            else:
+                # (16, 64, 64): a temporary of 16 pieces in its backward
+                outs.append((p[..., None] * w).sum(-1))
+        y = torch.cat(loop.fill(outs), 0)
+        del outs, p
+        if kind == "collected":
+            y = torch.empty(n * 64, 64, 64, device="meta") + y.sum()
+        y.sum().backward()
+        del y
+    metatrace.clear()
+    return live.peak, live.live
+
+
+@pytest.mark.parametrize("kind", ["split", "unbind", "gathered",
+                                  "collected"])
+def test_the_shortcut_counts_every_piece_the_loop_skips(kind, monkeypatch):
+    """A piece's gradient stands for the pieces the shortened loop did not
+    read until the split's backward gathers them (the zeros made in their
+    place are not counted); an item's collected output, for the
+    others' outputs, only as long as it lives."""
+    short = _loop_peak(kind)
+    monkeypatch.setattr(metatrace, "on_meta", lambda *t: False)
+    assert short == _loop_peak(kind)
+
+
 # ---------------------------------------------------------------------------
 # against the reference's flop counter and memory analysis
 def _ref_matmul_flops(fn, *args) -> float:
@@ -345,17 +409,18 @@ FLOP_GAPS = {
 # a train step, the same rule (per op, the port's count less the
 # reference's): before the block loops split their operands once, the
 # slices' whole-size gradients and their additions made Mistral's gap
-# +4,444,098,125,124 (15.8%)
+# +4,444,098,125,124 (15.8%); before attend split its operands once
+# per mesh position's chunk, +45,380,525,380 (its slices of k and v,
+# one position here, +134,217,728)
 TRAIN_FLOP_GAPS = {
     ("mistral-nemo-12b", "train_4k"): (
-        45380525380.0, "the backward pass's reductions (sum and mean "
+        45246307652.0, "the backward pass's reductions (sum and mean "
         "against reduce_sum, +32,198,622,592); mul +12,876,586,857; the "
         "masks' spellings (gt, lt, eq, masked_fill_ against le, lt, ge, "
         "eq: +1,044,381,672); div +1,178,599,456; silu and its backward "
-        f"(+536,870,912: {_SILU}); {_EMBED} (+134,217,728); attend's "
-        "per-mesh-position slices of k and v (one position here) and the "
-        "gold logit's select (slice_backward and select_backward, "
-        "+135,266,304); add, sub, exp and neg against "
+        f"(+536,870,912: {_SILU}); {_EMBED} (+134,217,728); the gold "
+        "logit's select (select_backward, +1,048,576); add, sub, exp and "
+        "neg against "
         "add_any, add, sub, exp, neg (-2,713,796,578); the norms', rotary "
         "tables' and clip's spellings (-10,223,563)"),
 }

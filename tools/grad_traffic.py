@@ -1,12 +1,13 @@
-"""The train step's counted traffic on the CPU: the dry run's flops of the
-train cells against the reference's, the shortened ``meta`` trace against
-the unrolled one, and the whole-size gradients of the loops that stay
-per mesh position.
+"""The train step's counted traffic: the dry run's flops of the train
+cells against the reference's, the shortened ``meta`` trace against the
+unrolled one, the gradients of the loops over mesh positions, and a cell
+on two meshes.
 
     PYTHONPATH=src:. JAX_PLATFORMS=cpu python tools/grad_traffic.py gaps [ARCH ...]
     PYTHONPATH=src:. JAX_PLATFORMS=cpu python tools/grad_traffic.py attribute ARCH
     PYTHONPATH=src:. JAX_PLATFORMS=cpu python tools/grad_traffic.py shortcut [ARCH ...]
     PYTHONPATH=src:. JAX_PLATFORMS=cpu python tools/grad_traffic.py positions
+    PYTHONPATH=src:. JAX_PLATFORMS=cpu python tools/grad_traffic.py meshes [ARCH ...]
 
 * ``gaps``: each arch's ``train_4k`` cell at ``reduced()`` with 2 layers
   on one ``meta`` device (``tests/test_torch_dryrun.py``'s
@@ -21,6 +22,12 @@ per mesh position.
 * ``positions``: ``tests/test_torch_grad_traffic.py``'s counter, every
   op, over the backward of ``attention.attend`` and ``_slstm_sharded``
   on a (2, 2) mesh of CPU logical devices.
+* ``meshes``: each arch's ``train_4k`` cell at ``reduced()`` with 2
+  layers through ``dryrun.lower_cell`` on (1, 1) and (4, 4) ``meta``
+  meshes: total flops and bytes summed over the devices (so they compare
+  with one device directly), the flops of ``slice_backward`` and
+  ``add``, and the bytes of ``copy_`` and ``index_add`` (an index's
+  backward adding into zeros).
 
 Set ``PYTHONPATH`` to another tree's ``src`` first to count that tree.
 """
@@ -182,6 +189,33 @@ def positions() -> None:
                              in mode.counts.items()})
 
 
+def meshes(archs) -> None:
+    import pytest
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    for arch in archs:
+        for shape in ((1, 1), (4, 4)):
+            mp = pytest.MonkeyPatch()
+            mp.setattr(dryrun, "get_config",
+                       lambda a: get_config(a).reduced())
+            mp.setattr(dryrun, "_mesh_ctx", lambda multi, s=shape, **kw: (
+                dryrun.meta_mesh(s), dict(data_axes=("data",),
+                                          model_axis="model", **kw)))
+            try:
+                record, tr = dryrun.lower_cell(arch, "train_4k", False,
+                                               n_layers=2)
+            finally:
+                mp.undo()
+            op = {k: tr.by_op.get(k, [0.0, 0.0]) for k in (
+                "slice_backward", "copy_", "add", "index_add")}
+            print(arch, shape, json.dumps(dict(
+                flops=tr.flops, bytes=tr.bytes,
+                slice_backward_flops=op["slice_backward"][0],
+                copy_bytes=op["copy_"][1], add_flops=op["add"][0],
+                index_add_bytes=op["index_add"][1],
+                peak=tr.peak, seconds=tr.wall_s)), flush=True)
+
+
 def main(argv: list[str]) -> int:
     from repro_torch.configs import ARCH_IDS
     what, rest = (argv[0], argv[1:]) if argv else ("", [])
@@ -193,6 +227,8 @@ def main(argv: list[str]) -> int:
         shortcut(rest or ["zamba2-1.2b", "xlstm-1.3b", "mistral-nemo-12b"])
     elif what == "positions":
         positions()
+    elif what == "meshes":
+        meshes(rest or ARCH_IDS)
     else:
         print(__doc__, file=sys.stderr)
         return 2

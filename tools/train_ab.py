@@ -1,6 +1,8 @@
 """Two source trees of the port against each other on one card: the
-``[train]`` step (Mistral-NeMo-12B, 4 layers, B 2 x S 4,096) and the
-``[train_recurrent]`` steps (xLSTM-1.3B, Zamba2-1.2B) of ``chip_smoke.py``.
+``[train]`` step (Mistral-NeMo-12B, 4 layers, B 2 x S 4,096), the
+``[train_recurrent]`` steps (xLSTM-1.3B, Zamba2-1.2B) and the ``[mesh]``
+train step (Granite-3.0-1B-A400M, ``fsdp`` on a (2, 2) mesh of logical
+devices, B 4 x S 4,096) of ``chip_smoke.py``.
 
 Each run is a process of its own that executes this checkout's
 ``chip_smoke.py`` as if it sat at the root of the tree, so that its
@@ -26,7 +28,7 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 
 def run_one(tree: pathlib.Path) -> None:
     """This checkout's ``chip_smoke.py``, rooted at ``tree``: its
-    ``[train]`` and ``[train_recurrent]`` lines."""
+    ``[train]``, ``[train_recurrent]`` and ``[mesh]`` train lines."""
     mod = types.ModuleType("chip_smoke")
     mod.__file__ = str(tree / "chip_smoke.py")
     sys.modules["chip_smoke"] = mod
@@ -43,6 +45,8 @@ def run_one(tree: pathlib.Path) -> None:
     mod.train_step(dev, card)
     torch.cuda.empty_cache()
     mod.train_recurrent(dev, card)
+    torch.cuda.empty_cache()
+    mod.mesh_train(dev, card, mod.logical_mesh(dev, mod.MESH_SHAPE))
 
 
 def main(argv: list[str]) -> int:
