@@ -1,0 +1,7 @@
+"""The device's idle share over the traced batches: 1 - (union of
+kernel, copy and memset intervals) / window, in %."""
+from perfbench.metrics_common import idle_share
+
+
+def read(rec):
+    return idle_share(rec, "serve")
