@@ -19,12 +19,17 @@ Run it on the card, or on the CPU with the kernels' plain versions::
 from __future__ import annotations
 
 import argparse
+import itertools
 import time
 
 import torch
 
+from .. import obs
 from ..configs import get_config
 from ..models import api
+
+# the sequence id of each generate call, shared by its spans' attributes
+_SEQUENCES = itertools.count()
 
 
 def build_serve_fns(cfg):
@@ -44,25 +49,38 @@ def generate(cfg, params, batch, *, max_new_tokens: int, max_len: int,
     """Greedy (or sampled) generation for a batch of prompts:
     ``(B, max_new_tokens)`` int32 tokens on the prompts' device.  Sampling
     draws from a ``torch.Generator`` seeded with ``seed`` (other numbers
-    than the reference's ``jax.random``)."""
-    prefill, decode = build_serve_fns(cfg)
-    p = api.prepare(params, cfg)
+    than the reference's ``jax.random``).
+
+    In an open span recording (``obs.recording``) the call records
+    ``serve/generate`` (``seq``, a sequence id its child spans share,
+    ``batch``, ``prompt_len``) around ``model/prepare``,
+    ``serve/prefill``, ``serve/pad_caches`` and one ``serve/decode``
+    (``index``) an iteration: the sampling and the ``decode_step``."""
     tokens = batch["tokens"]
-    prompt_len = tokens.shape[1]
-    logits, caches = prefill(p, batch)
-    caches = api.pad_caches(caches, max_len)
-    gen = torch.Generator(device=tokens.device).manual_seed(seed)
-    outs = []
-    for i in range(max_new_tokens):
-        if temperature > 0:
-            probs = torch.softmax(logits[:, -1].float() / temperature, -1)
-            tok = torch.multinomial(probs, 1, generator=gen)
-        else:
-            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
-        tok = torch.clamp(tok, max=cfg.vocab_size - 1).to(torch.int32)
-        outs.append(tok)
-        logits, caches = decode(p, tok, caches, prompt_len + i)
-    return torch.cat(outs, dim=1)
+    b, prompt_len = tokens.shape[:2]
+    seq = next(_SEQUENCES) if obs.current() is not None else None
+    with obs.span("serve/generate", seq=seq, batch=b,
+                  prompt_len=prompt_len):
+        prefill, decode = build_serve_fns(cfg)
+        p = api.prepare(params, cfg)
+        with obs.span("serve/prefill", seq=seq):
+            logits, caches = prefill(p, batch)
+        caches = api.pad_caches(caches, max_len)
+        gen = torch.Generator(device=tokens.device).manual_seed(seed)
+        outs = []
+        for i in range(max_new_tokens):
+            with obs.span("serve/decode", seq=seq, index=i):
+                if temperature > 0:
+                    probs = torch.softmax(logits[:, -1].float() /
+                                          temperature, -1)
+                    tok = torch.multinomial(probs, 1, generator=gen)
+                else:
+                    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+                tok = torch.clamp(tok, max=cfg.vocab_size - 1) \
+                    .to(torch.int32)
+                outs.append(tok)
+                logits, caches = decode(p, tok, caches, prompt_len + i)
+        return torch.cat(outs, dim=1)
 
 
 def main(argv=None):

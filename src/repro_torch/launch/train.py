@@ -26,7 +26,7 @@ import time
 
 import torch
 
-from .. import dist
+from .. import dist, obs
 from ..ckpt import latest_step, restore_checkpoint, save_checkpoint
 from ..configs import get_config
 from ..data import SyntheticTokens
@@ -53,44 +53,60 @@ def build_train_step(cfg, *, peak_lr: float = 3e-4, warmup: int = 100,
     unused: it is a host int) and ``out_shardings`` ``(params,
     opt_state, metrics)`` the outputs (None leaves one as it is), the
     counterpart of the reference's ``jax.jit(step, in_shardings=(p_sh,
-    o_sh, b_sh, repl), out_shardings=(p_sh, o_sh, None))``."""
+    o_sh, b_sh, repl), out_shardings=(p_sh, o_sh, None))``.
+
+    In an open span recording (``obs.recording``) the step records
+    ``train/step`` (``step``) around its phases ``train/forward`` (the
+    loss), ``train/backward``, ``train/clip`` and ``train/adamw`` (the
+    schedule and the update)."""
+    def loss_and_backward(params, batch):
+        with obs.span("train/forward"):
+            loss = api.loss_fn(params, cfg, batch)
+        with obs.span("train/backward"):
+            loss.backward()
+        return loss
+
     def grads_of(params, batch):
         if isinstance(params, dict):
             shards = [t for x in dist.placed_leaves(params)
                       for t in x.shards.values()]
             for t in shards:
                 t.requires_grad_(True)
-            loss = api.loss_fn(params, cfg, batch)
-            loss.backward()
+            loss = loss_and_backward(params, batch)
             grads = dist.map_placed(lambda x: x.map(_grad), params)
             for t in shards:
                 t.grad = None
                 t.requires_grad_(False)
             return loss, grads
         params.requires_grad_(True)
-        loss = api.loss_fn(params, cfg, batch)
-        loss.backward()
+        loss = loss_and_backward(params, batch)
         return loss, tree_map(_grad, tree(params))
 
     def train_step(params, opt_state, batch, step):
-        if in_shardings is not None:
-            params, opt_state, batch = (
-                x if sh is None else dist.device_put(x, sh)
-                for x, sh in zip((params, opt_state, batch), in_shardings))
-        loss, grads = grads_of(params, batch)
-        grads, gnorm = clip_by_global_norm(grads, clip)
-        lr = cosine_schedule(step, peak_lr=peak_lr, warmup_steps=warmup,
-                             total_steps=total_steps)
-        params, opt_state = adamw_update(grads, opt_state, params, lr=lr,
-                                         weight_decay=weight_decay)
-        if not isinstance(params, dict):
-            params.zero_grad(set_to_none=True)
-        metrics = {"loss": loss.detach(), "gnorm": gnorm, "lr": lr}
-        out = (params, opt_state, metrics)
-        if out_shardings is not None:
-            out = tuple(x if sh is None else dist.device_put(x, sh)
-                        for x, sh in zip(out, out_shardings))
-        return out
+        with obs.span("train/step", step=step):
+            if in_shardings is not None:
+                params, opt_state, batch = (
+                    x if sh is None else dist.device_put(x, sh)
+                    for x, sh in zip((params, opt_state, batch),
+                                     in_shardings))
+            loss, grads = grads_of(params, batch)
+            with obs.span("train/clip"):
+                grads, gnorm = clip_by_global_norm(grads, clip)
+            with obs.span("train/adamw"):
+                lr = cosine_schedule(step, peak_lr=peak_lr,
+                                     warmup_steps=warmup,
+                                     total_steps=total_steps)
+                params, opt_state = adamw_update(
+                    grads, opt_state, params, lr=lr,
+                    weight_decay=weight_decay)
+            if not isinstance(params, dict):
+                params.zero_grad(set_to_none=True)
+            metrics = {"loss": loss.detach(), "gnorm": gnorm, "lr": lr}
+            out = (params, opt_state, metrics)
+            if out_shardings is not None:
+                out = tuple(x if sh is None else dist.device_put(x, sh)
+                            for x, sh in zip(out, out_shardings))
+            return out
     return train_step
 
 

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import dist
+from .. import dist, obs
 from ..dist import sharding as dist_sharding
 from . import transformer
 from .layers import cross_entropy_loss, logits_out
@@ -90,11 +90,20 @@ def prepare(params, cfg) -> dict:
     ``_prep_stack`` pins them, the stacked experts of ``moe_blocks``
     (``gate``, ``up``, ``down``, (L, E, ...)) are then placed by
     ``P(None, model, None, None)`` (``model`` only where it divides E):
-    each device holds its own experts for ``moe_ffn_ep``."""
+    each device holds its own experts for ``moe_ffn_ep``.
+
+    The casts run in the span ``model/prepare`` (``obs.span``); a tree
+    this function made returns at once, outside it."""
     if isinstance(params, dict):
         leaves = transformer.tree_leaves(params)
         if not all(isinstance(t, dist.Placed) for t in leaves):
             return params
+    with obs.span("model/prepare"):
+        return _prepare(params, cfg)
+
+
+def _prepare(params, cfg) -> dict:
+    if isinstance(params, dict):
         params = transformer.tree_map(dist.gather, params)
     cd = transformer._cdtype(cfg)
     p = transformer.tree(params) if not isinstance(params, dict) \
@@ -306,7 +315,8 @@ def pad_caches(caches, target_len: int):
     {"k", "v"}), as ``tree_map_with_path`` walks them in the reference;
     every other leaf is returned as it is.  A placed leaf grows stripe by
     stripe (``dist.reshard``): its sequence stays striped over the same
-    axes where they divide ``target_len``, and no full cache is made."""
+    axes where they divide ``target_len``, and no full cache is made.
+    Recorded as the span ``serve/pad_caches``."""
     def visit(path, leaf):
         if dist_sharding._cache_key(path) not in \
                 dist_sharding._SEQ_CACHE_KEYS or leaf.shape[-2] >= target_len:
@@ -317,7 +327,8 @@ def pad_caches(caches, target_len: int):
         pad = leaf.new_zeros(shape[:-2] + (target_len - leaf.shape[-2],
                                            leaf.shape[-1]))
         return torch.cat([leaf, pad], dim=-2)
-    return dist_sharding._map_with_path(visit, caches)
+    with obs.span("serve/pad_caches"):
+        return dist_sharding._map_with_path(visit, caches)
 
 
 def _grown(sh, shape):

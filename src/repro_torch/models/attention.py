@@ -30,7 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .. import dist, metatrace
+from .. import dist, metatrace, obs
 from ..kernels.flash_attention import ops as fa_ops
 from . import rope as rope_mod
 from .layers import Linear, draw, joined, linear, pieces
@@ -177,8 +177,13 @@ class _Replica(torch.autograd.Function):
 
 
 def _attend(q, k, v, spec, cfg, causal):
-    return attend(q, k, v, spec, causal=causal, impl=cfg.attn_impl,
-                  q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk)
+    """:func:`attend` in the span ``attn/core`` (its backward pass in
+    ``attn/core.bwd``)."""
+    with obs.span("attn/core") as sp:
+        q, k, v = sp.enter(q, k, v)
+        return sp.exit(attend(q, k, v, spec, causal=causal,
+                              impl=cfg.attn_impl, q_chunk=cfg.attn_q_chunk,
+                              k_chunk=cfg.attn_k_chunk))
 
 
 def attention_train(p, x, cfg, positions, *, causal: bool = True,

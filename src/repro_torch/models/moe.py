@@ -33,6 +33,14 @@ instead of writing a whole-size one per device.  Everything is
 differentiable.  On ``meta`` tensors the loop over EP groups runs its
 first, second and last groups, the second counted for the rest
 (``metatrace.steps``).
+
+In an open span recording (``obs.recording``) :func:`moe_ffn_ep` records
+``moe/ffn`` (its backward pass ``moe/ffn.bwd``) around ``moe/route``,
+``moe/dispatch``, ``moe/experts`` and ``moe/combine``, and each dispatch
+counts its token-choices (``moe.choices``, N·k), its bucket slots
+(``moe.slots``, E·C) and, as a running maximum on the device, the
+fullest expert's choices over C (``moe.peak``).  A checkpoint's
+recompute counts again.
 """
 from __future__ import annotations
 
@@ -43,7 +51,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .. import dist, metatrace
+from .. import dist, metatrace, obs
 from .layers import (FFN, Linear, _lead, _param, draw, ffn, joined, linear,
                      pieces)
 
@@ -154,6 +162,11 @@ def _dispatch_local(xt, topi, e: int, capacity: int, dtype):
         torch.searchsorted(sorted_e, sorted_e, side="left")
     pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
     keep = pos < capacity
+    rec = obs.current()
+    if rec is not None:
+        rec.add("moe.choices", n * k)
+        rec.add("moe.slots", e * capacity)
+        rec.max("moe.peak", (pos_sorted.max() + 1) / capacity)
     slot = flat_e * capacity + torch.clamp(pos, max=capacity - 1)
     src = torch.arange(n, device=xt.device).repeat_interleave(k)
     target = torch.where(keep, slot, torch.full_like(slot, e * capacity))
@@ -177,14 +190,18 @@ def _moe_local(p, x, cfg, cf):
     xt = x.reshape(-1, d)
     n_l = xt.shape[0]
     e = cfg.n_experts
-    topv, topi, _ = _router(p, xt, cfg)
+    with obs.span("moe/route"):
+        topv, topi, _ = _router(p, xt, cfg)
     capacity = _capacity(cf, n_l, cfg)
-    buf, slot, keep = _dispatch_local(xt, topi, e, capacity, x.dtype)
-    ye = _expert_ffn(buf, p["gate"], p["up"], p["down"], x.dtype)
-    out = _unscatter_local(ye.reshape(e * capacity, d), slot, keep, topv,
-                           n_l, cfg.top_k, x.dtype)
-    if cfg.n_shared_experts:
-        out = out + _shared(p, xt)
+    with obs.span("moe/dispatch"):
+        buf, slot, keep = _dispatch_local(xt, topi, e, capacity, x.dtype)
+    with obs.span("moe/experts"):
+        ye = _expert_ffn(buf, p["gate"], p["up"], p["down"], x.dtype)
+    with obs.span("moe/combine"):
+        out = _unscatter_local(ye.reshape(e * capacity, d), slot, keep,
+                               topv, n_l, cfg.top_k, x.dtype)
+        if cfg.n_shared_experts:
+            out = out + _shared(p, xt)
     return out.reshape(b, s, d)
 
 
@@ -217,12 +234,18 @@ def moe_ffn_ep(p, x, cfg, *, capacity_factor: float | None = None):
     tokens, which is correct and negligible for one token.  Each
     position's capacity counts its own tokens, so drops follow the
     shard.  The output is assembled on ``x``'s device."""
-    ctx = dist.current()
     cf = capacity_factor if capacity_factor is not None \
         else cfg.moe_capacity_factor
-    if ctx is None:
-        return _moe_local(p, x, cfg, cf)
+    with obs.span("moe/ffn") as sp:
+        x, p = sp.enter(x, p)
+        if dist.current() is None:
+            return sp.exit(_moe_local(p, x, cfg, cf))
+        return sp.exit(_moe_ep(p, x, cfg, cf))
 
+
+def _moe_ep(p, x, cfg, cf):
+    """:func:`moe_ffn_ep`'s body under a mesh."""
+    ctx = dist.current()
     mesh = ctx.mesh
     ep = ctx.model_axis
     n_ep = ctx.axis_size(ep)
@@ -287,31 +310,37 @@ def moe_ffn_ep(p, x, cfg, *, capacity_factor: float | None = None):
         local = []
         for dev in group:
             xt = on(blocks[s0s.index(start(dev)[1])], dev).reshape(n_l, d)
-            topv, topi, _ = _router({"router": on(p["router"], dev)}, xt,
-                                    cfg)
-            buf, slot, keep = _dispatch_local(xt, topi, e, capacity,
-                                              x.dtype)
+            with obs.span("moe/route"):
+                topv, topi, _ = _router({"router": on(p["router"], dev)},
+                                        xt, cfg)
+            with obs.span("moe/dispatch"):
+                buf, slot, keep = _dispatch_local(xt, topi, e, capacity,
+                                                  x.dtype)
             local.append((xt, topv, slot, keep, buf))
         # send expert buckets to their owners: rank i's experts
         # [j*E_l, (j+1)*E_l) go to rank j, concatenated over i
-        recv = _exchange([r[4].split(e_l, 0) for r in local], group)
+        with obs.span("moe/dispatch"):
+            recv = _exchange([r[4].split(e_l, 0) for r in local], group)
         back = []
         for j, dev in enumerate(group):
             # (n_ep, E_l, C, d) -> (E_l, n_ep*C, d)
             rj = recv[j].reshape(n_ep, e_l, capacity, d).transpose(0, 1) \
                 .reshape(e_l, n_ep * capacity, d)
             w = [expert_chunk(k, dev) for k in ("gate", "up", "down")]
-            ye = _expert_ffn(rj, *w, x.dtype)
+            with obs.span("moe/experts"):
+                ye = _expert_ffn(rj, *w, x.dtype)
             # reverse route: (E_l, n_ep, C, d) -> one chunk per source rank
             back.append(list(ye.reshape(e_l, n_ep, capacity, d)
                              .transpose(0, 1)))
-        mine = _exchange(back, group)
+        with obs.span("moe/combine"):
+            mine = _exchange(back, group)
         outs.append([])
         for dev, (xt, topv, slot, keep, _), yi in zip(group, local, mine):
-            o = _unscatter_local(yi.reshape(e * capacity, d), slot, keep,
-                                 topv, n_l, cfg.top_k, x.dtype)
-            if cfg.n_shared_experts:
-                o = o + _shared({"shared": on(p["shared"], dev)}, xt)
+            with obs.span("moe/combine"):
+                o = _unscatter_local(yi.reshape(e * capacity, d), slot,
+                                     keep, topv, n_l, cfg.top_k, x.dtype)
+                if cfg.n_shared_experts:
+                    o = o + _shared({"shared": on(p["shared"], dev)}, xt)
             outs[-1].append(o.reshape(b_l, s_l, d).to(x.device))
     # each block's output, from the first device that holds it (a block
     # replicated over EP, in decode, is taken once)

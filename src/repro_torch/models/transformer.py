@@ -45,7 +45,7 @@ from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
-from .. import dist, metatrace
+from .. import dist, metatrace, obs
 from . import attention as attn_mod
 from . import mamba as mamba_mod
 from . import mla as mla_mod
@@ -418,8 +418,12 @@ def _run_attn_stack(stacked, x, cfg, positions, mode, caches, pos, *,
     layers = _unstack(stacked)
     if mode == "train":
         def body(h, p_l):
-            out = block_apply(p_l, h, cfg, positions, moe_layer=moe_layer,
-                              mode="train")[0]
+            # a span of its own, also in a checkpoint's recompute, so that
+            # the recompute's work outside attention and the MoE FFN is
+            # told apart from the backward span it runs inside
+            with obs.span("model/block"):
+                out = block_apply(p_l, h, cfg, positions,
+                                  moe_layer=moe_layer, mode="train")[0]
             dist.constrain_seq(out)
             return out
         f = _remat(body, cfg)

@@ -14,6 +14,11 @@ Timestamps: events carry end-of-span ``ts`` (seconds since tracker
 start) and a ``wall_s`` duration; Chrome wants start timestamps in
 microseconds, so spans are emitted at ``(ts - wall_s) * 1e6`` clamped at
 zero.  The output list is sorted by timestamp (tested monotonic).
+
+The port's spans (:mod:`~repro_torch.obs.spans`) export as complete
+events of category ``program_span`` on the epoch clock
+(:func:`span_events`), and :func:`merge_spans` adds them to a profiler's
+Chrome trace on its host threads' tracks, beside the kernels.
 """
 from __future__ import annotations
 
@@ -21,7 +26,8 @@ import json
 
 from .events import Event
 
-__all__ = ["load_jsonl", "chrome_trace", "export_chrome_trace"]
+__all__ = ["load_jsonl", "chrome_trace", "export_chrome_trace",
+           "span_events", "merge_spans"]
 
 _PID = 0
 _TID_WAVES = 0
@@ -91,3 +97,37 @@ def export_chrome_trace(events_or_path, out_path) -> dict:
         json.dump(doc, f)
         f.write("\n")
     return doc
+
+
+def span_events(rec, base_ns: int = 0, pid: int = 0) -> list[dict]:
+    """The closed spans of ``rec`` (an ``obs.spans.Recording``) as
+    complete (``X``) events of category ``program_span``, in µs after
+    ``base_ns`` on the epoch clock, each on its thread's track (``tid``
+    the native thread id, as Kineto's host events have it); ``args``
+    hold the attributes, the span's index and its parent's."""
+    index = {id(s): i for i, s in enumerate(rec.spans)}
+    out = []
+    for i, s in enumerate(rec.spans):
+        if s.end is None:
+            continue
+        args = dict(s.attrs, span=i)
+        if s.parent is not None:
+            args["parent"] = index.get(id(s.parent))
+        out.append({"name": s.name, "cat": "program_span", "ph": "X",
+                    "pid": pid, "tid": s.tid,
+                    "ts": (rec.epoch_ns(s.start) - base_ns) / 1e3,
+                    "dur": (s.end - s.start) / 1e3, "args": args})
+    return out
+
+
+def merge_spans(path, rec, pid: int = 0) -> int:
+    """Add the spans of ``rec`` to the profiler's Chrome trace at
+    ``path``, mapped onto its clock (``baseTimeNanoseconds``); returns
+    how many were added."""
+    with open(path, encoding="utf-8") as f:
+        doc = json.load(f)
+    events = span_events(rec, int(doc.get("baseTimeNanoseconds", 0)), pid)
+    doc.setdefault("traceEvents", []).extend(events)
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(doc, f)
+    return len(events)

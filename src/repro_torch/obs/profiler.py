@@ -13,7 +13,9 @@ ranges only land in a trace file if someone profiles around the run.  It
 brackets a region with ``torch.profiler.profile`` (the CPU, and the card's
 kernels where there is one) and writes a Chrome trace under ``logdir``
 when the region ends, also when its body raises, so a partial session
-still leaves its trace.
+still leaves its trace.  It also opens a span recording
+(:mod:`~repro_torch.obs.spans`), whose spans it merges into that trace,
+and into which :func:`trace_span` records its ranges too.
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ import os
 import pathlib
 
 import torch
+
+from . import chrome, spans
 
 __all__ = ["trace_span", "profile_session", "profiler_available"]
 
@@ -37,11 +41,20 @@ def profiler_available() -> bool:
 
 
 def trace_span(label: str, enabled: bool = True):
-    """A context manager naming ``label`` in the torch profiler timeline;
-    a no-op when ``enabled`` is False."""
+    """A context manager naming ``label`` in the torch profiler timeline,
+    and in the open span recording if there is one; a no-op when
+    ``enabled`` is False."""
     if not enabled:
         return _NULL
-    return torch.profiler.record_function(label)
+    if spans.current() is None:
+        return torch.profiler.record_function(label)
+    return _recorded(label)
+
+
+@contextlib.contextmanager
+def _recorded(label: str):
+    with torch.profiler.record_function(label), spans.span(label):
+        yield
 
 
 @contextlib.contextmanager
@@ -51,8 +64,11 @@ def profile_session(logdir: str | os.PathLike | None,
     to ``<logdir>/bddt-<pid>-<n>.pt.trace.json`` at the end.
 
     Yields the running ``torch.profiler.profile`` (its ``trace_path``
-    names the file once the region has ended), or False when ``logdir``
-    is falsy: then nothing is recorded, so callers never need to guard.
+    names the file once the region has ended, its ``recording`` the
+    span recording, whose spans the file holds), or False when
+    ``logdir`` is falsy: then nothing is recorded, so callers never need
+    to guard.  Inside a recording that is already open the session
+    records into that one.
     ``cuda`` asks for the card's activity: None records it where CUDA is
     available; True raises ``RuntimeError`` where it is not, rather than
     record the CPU alone; False records the CPU only."""
@@ -70,13 +86,20 @@ def profile_session(logdir: str | os.PathLike | None,
     out = pathlib.Path(logdir)
     out.mkdir(parents=True, exist_ok=True)
     prof = torch.profiler.profile(activities=acts)
-    prof.start()
+    rec = spans.current()
     try:
-        yield prof
+        with (spans.recording() if rec is None else
+              contextlib.nullcontext(rec)) as rec:
+            prof.recording = rec
+            prof.start()
+            try:
+                yield prof
+            finally:
+                if cuda:
+                    torch.cuda.synchronize()
+                prof.stop()
     finally:
-        if cuda:
-            torch.cuda.synchronize()
-        prof.stop()
         prof.trace_path = out / \
             f"bddt-{os.getpid()}-{next(_SESSIONS)}.pt.trace.json"
         prof.export_chrome_trace(str(prof.trace_path))
+        chrome.merge_spans(prof.trace_path, rec, pid=os.getpid())
