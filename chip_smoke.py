@@ -52,6 +52,25 @@ Phases, each of which must pass (any failure exits non-zero):
    data sheet, read from
    ``repro_torch.core.costmodel.H100Params``), the larger.
    Flash attention counts 4 D operations per visible (query, key) pair.
+   Then the training attention pair (``flash_attention_train``, what
+   ``chunked`` runs on the card) at the train cells' shapes, causal:
+   Mistral-NeMo-12B's (B 2 x 4,096, Hq 32, Hkv 8, head dim 128) and
+   Granite-3.0-1B-A400M's (B 8 x 4,096, Hq 16, Hkv 8, head dim 64).
+   On one batch row its output and gradients against the f32 oracle
+   (``ref.mha``): each error at most 1.1 times the chunked path's plus
+   one bf16 ulp of the tensor's largest value; and the precision of the
+   hi + lo split against the pair's plain version
+   (``train.forward_plain``, ``train.backward_plain``), normwise: the
+   forward's f32 output within ``SPLIT_O32_TOL``, the bf16 gradients
+   within ``SPLIT_GRAD_TOL``.  Timed: the forward and the backward apart
+   (``ms``, ``bwd_ms``), each beside its bound (the tensor-core
+   operations the chunked path's precision needs, 3 F1 and 8 F1 with
+   F1 = 2 D B Hq x the visible pairs of one head, at 989 TFLOP/s;
+   ``bwd_run_bound_ms``: the 10 F1 the backward runs, S and dP computed
+   in both of its kernels), the chunked path's forward and
+   forward-plus-backward (``plain_ms``, ``plain_fb_ms``) and SDPA's
+   (``library_ms``, ``library_fb_ms``), timed here only as the
+   yardstick; the port never calls it.
 4. Apps (main path 1): the five apps at the §4.2 sizes through
    ``TaskRuntime(executor="staged", kernel_backend="pallas",
    device="cuda")``; each verifies its own result against a plain
@@ -135,11 +154,13 @@ Phases, each of which must pass (any failure exits non-zero):
    Mistral-NeMo-12B at full width, cut to 4 of its 40 layers
    (``TRAIN_REDUCED``, printed on the first ``[train]`` line), weights
    from seed 0, bf16 compute over f32 masters, ``attn_impl="chunked"``
-   (the flash kernel has no backward, nor has the TPU kernel), remat
+   (the training kernel pair on the card), remat
    ``full``: B 2 x S 4,096 from ``SyntheticTokens``, one warm-up and 5
    timed steps.  Checks: loss and gnorm finite, gnorm above 0, every
-   parameter leaf changed, the learning rate ``cosine_schedule``'s.
-   Prints the median step ms, tokens/s (B·S a step), peak device
+   parameter leaf changed, the learning rate ``cosine_schedule``'s, and
+   the attention pair's launches in the timed steps, counted from 0
+   just before them: the forward twice a layer and step (remat), each
+   backward kernel once.  Prints the median step ms, tokens/s (B·S a step), peak device
    memory, model TFLOP/s (6·N·T + 6·L·B·Hq·S²·Dh, N the parameters less
    the embedding table, T = B·S) and its share of 989 TFLOP/s, the
    device's idle share over a profiled step and the device ms of the
@@ -287,8 +308,10 @@ Phases, each of which must pass (any failure exits non-zero):
 
 Then one JSON line of kernel results (each row's ``launches`` from phase
 4, 5 or 6, and in ``launches_by_path`` those of phases 7, 8, 9, 14, 15,
-17, 18, 19 and 20), the card line again, and last ``{"ok": true,
-"device": {...}}``.
+17, 18, 19 and 20; ``flash_attention_train``'s by kernel, from the
+``[train]`` step's timed steps, and in each path that trains on the card
+those of that phase, each counted from 0 just before it), the card line
+again, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -689,6 +712,133 @@ def kernel_phase(dev) -> list[dict]:
     parity_of_black_scholes(dev, gen)
     del flush
     return results
+
+
+# the hi + lo split's precision, normwise against the pair's plain
+# version: the forward's f32 output (written before rounding) and the
+# bf16 gradients.  At the train cells' shapes this build reads at most
+# 3.8e-6 and 5.8e-4, a build without the lo products at least 1.2e-3 and
+# 2.5e-3 (PERF.md)
+SPLIT_O32_TOL, SPLIT_GRAD_TOL = 2.0 ** -14, 2.0 ** -10
+
+
+def normgap(x, want) -> float:
+    """||x - want|| / ||want||, in f32."""
+    want = want.float()
+    return float((x.float() - want).norm() / want.norm())
+
+
+def attn_train_phase(dev) -> dict:
+    """The training attention pair at the train cells' shapes: checked on
+    one batch row against the f32 oracle beside the chunked path and
+    against its plain version for the split's precision, then its
+    forward and backward timed against the chunked path and SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref, train
+
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def grads(fn, leaves, do):
+        leaves = [x.detach().requires_grad_() for x in leaves]
+        out = fn(*leaves)
+        return [out.detach()] + list(torch.autograd.grad(out, leaves, do))
+
+    def ulp(x) -> float:
+        return 2.0 ** (math.floor(math.log2(float(x.abs().max()))) - 7)
+
+    result = None
+    for tag, (b, hq, hkv, s, d) in (("mistral", (2, 32, 8, 4096, 128)),
+                                    ("granite", (8, 16, 8, 4096, 64))):
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
+                       .to(torch.bfloat16)
+                       for shape in ((b, hq, s, d), (b, hkv, s, d),
+                                     (b, hkv, s, d), (b, hq, s, d)))
+        scale = d ** -0.5
+        one = [x[:1] for x in (q, k, v, do)]
+        pair = grads(lambda *x: ops.attention(*x), one[:3], one[3])
+        chunked = grads(lambda *x: ops.chunked_attention(*x), one[:3],
+                        one[3])
+        oracle = grads(lambda *x: ref.mha(*x), [x.float() for x in one[:3]],
+                       one[3].float())
+        errs = {}
+        for name, p_, c_, r_ in zip(("o", "dq", "dk", "dv"), pair, chunked,
+                                    oracle):
+            e_pair = float((p_.float() - r_).abs().max())
+            e_chunked = float((c_.float() - r_).abs().max())
+            errs[name] = dict(pair=e_pair, chunked=e_chunked, ulp=ulp(r_))
+            check(e_pair <= 1.1 * e_chunked + ulp(r_),
+                  f"flash_attention_train {tag} {name}: error {e_pair} "
+                  f"against the oracle, the chunked path's {e_chunked}")
+        del pair, chunked, oracle
+        _, o32, lse = train._forward_kernel(*one[:3], True, scale)
+        _, want_o32, _ = train.forward_plain(*one[:3], causal=True,
+                                             scale=scale)
+        split = {"o32": normgap(o32, want_o32)}
+        del want_o32
+        got = train._backward_kernel(*one[:3], o32, lse, one[3], True,
+                                     scale)
+        want = train.backward_plain(*one[:3], o32, lse, one[3],
+                                    causal=True, scale=scale)
+        split.update({name: normgap(g_, w_) for name, g_, w_ in
+                      zip(("dq", "dk", "dv"), got, want)})
+        del got, want
+        errs["split"] = split
+        check(split["o32"] <= SPLIT_O32_TOL and
+              all(split[n] <= SPLIT_GRAD_TOL for n in ("dq", "dk", "dv")),
+              f"flash_attention_train {tag}: {split} against its plain "
+              f"version, above {SPLIT_O32_TOL} (o32) or {SPLIT_GRAD_TOL}")
+        _, o32, lse = train._forward_kernel(q, k, v, True, scale)
+        twice = [train._backward_kernel(q, k, v, o32, lse, do, True, scale)
+                 for _ in range(2)]
+        check(all(torch.equal(x, y) for x, y in zip(*twice)),
+              f"flash_attention_train {tag}: backward not deterministic")
+        del twice
+        pairs = b * hq * s * (s + 1) // 2
+        f1 = 2 * d * pairs
+        fwd_bound = 3 * f1 / BF16_FLOPS_PER_S * 1e3
+        bwd_bound = 8 * f1 / BF16_FLOPS_PER_S * 1e3
+
+        def fb(fn):
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            torch.autograd.grad(fn(*leaves), leaves, do)
+
+        with torch.no_grad():
+            row = dict(
+                name="flash_attention_train", route="cuda",
+                source="src/repro_torch/csrc/flash_attention_train.cu",
+                replaces=None, launches=0,
+                shape=f"bf16 q({b},{hq},{s},{d}) kv({b},{hkv},{s},{d}) "
+                      "causal",
+                ms=time_ms(lambda: train._forward_kernel(q, k, v, True,
+                                                         scale), flush),
+                bwd_ms=time_ms(lambda: train._backward_kernel(
+                    q, k, v, o32, lse, do, True, scale), flush),
+                bound_ms=fwd_bound, bwd_bound_ms=bwd_bound,
+                bwd_run_bound_ms=bwd_bound * 10 / 8, bound_by="operations",
+                plain_ms=time_ms(lambda: ops.chunked_attention(q, k, v),
+                                 flush, reps=5),
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True), flush),
+                errors=errs)
+        row["plain_fb_ms"] = time_ms(lambda: fb(ops.chunked_attention),
+                                     flush, reps=5)
+        row["library_fb_ms"] = time_ms(lambda: fb(
+            lambda *x: F.scaled_dot_product_attention(
+                *x, is_causal=True, enable_gqa=True)), flush)
+        print(f"[kernel] flash_attention_train {tag} " + json.dumps(row),
+              flush=True)
+        del q, k, v, do, o32, lse
+        torch.cuda.empty_cache()
+        if result is None:
+            result = row
+        else:
+            result[tag] = {k_: v_ for k_, v_ in row.items()
+                           if k_ not in ("name", "route", "source",
+                                         "replaces", "launches")}
+    del flush
+    return result
 
 
 # a kernel row's other shapes and dtypes, each timed beside the row's own
@@ -3297,12 +3447,13 @@ def train_recurrent(dev, card: str) -> None:
               f"train {arch}: a loss or gnorm is not finite, or a gnorm is 0")
 
 
-def train_phase(dev, card: str) -> None:
+def train_phase(dev, card: str) -> dict:
     """Main path 4: ``launch.train.build_train_step`` with Mistral-NeMo-12B
     at full width (4 layers), bf16 compute over f32 masters, chunked
     attention, remat ``full``, and the recurrent families' steps; then
-    the f32 exactness check and the small runs."""
-    train_step(dev, card)
+    the f32 exactness check and the small runs.  Returns the training
+    attention pair's launches in the timed steps, by kernel."""
+    launches = train_step(dev, card)
     train_recurrent(dev, card)
     exact = train_exactness(dev)
     small = train_small(dev)
@@ -3321,11 +3472,31 @@ def train_phase(dev, card: str) -> None:
         check(row["grad_gap_of_max"] <= EXACT_GRAD_OF_MAX,
               f"train f32 {name}: gradient gap {row['grad_gap_of_max']} of "
               "the leaf's largest")
+    return launches
 
 
-def train_step(dev, card: str) -> None:
+def train_launches_zeroed() -> dict:
+    """The training attention pair's launch counts by kernel, set to 0."""
+    from repro_torch.kernels.flash_attention import train
+    counts = train.flash_attention_train.launches_by_kernel
+    counts.update(dict.fromkeys(counts, 0))
+    return counts
+
+
+def with_train_launches(phase, *args):
+    """``phase(*args)`` with the training attention pair's launch counts
+    zeroed just before it: its result and the counts of its own run."""
+    counts = train_launches_zeroed()
+    out = phase(*args)
+    return out, dict(counts)
+
+
+def train_step(dev, card: str) -> dict:
     """The ``[train]`` step: Mistral-NeMo-12B at full width (4 layers),
-    one warm-up and ``TRAIN_TIMED`` timed steps, a profiled one."""
+    one warm-up and ``TRAIN_TIMED`` timed steps, a profiled one.  Returns
+    the training attention pair's launches in the timed steps: under
+    remat ``full`` the forward twice a layer and step, each backward
+    kernel once."""
     import dataclasses
     import statistics
     import torch
@@ -3358,6 +3529,7 @@ def train_step(dev, card: str) -> None:
     before = [p.detach().to("cpu", copy=True) for p in params.parameters()]
     torch.cuda.reset_peak_memory_stats()
     ms, metrics = [], []
+    counts = train_launches_zeroed()
     for step in range(1, TRAIN_TIMED + 1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3365,6 +3537,7 @@ def train_step(dev, card: str) -> None:
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
         metrics.append({k: float(v) for k, v in m.items()})
+    launches = dict(counts)
     peak = torch.cuda.max_memory_allocated()
     unchanged = [n for (n, p), b in zip(params.named_parameters(), before)
                  if torch.equal(p.detach().cpu(), b)]
@@ -3406,11 +3579,16 @@ def train_step(dev, card: str) -> None:
         1.0 - busy_ms / step_ms,
         loss=[m["loss"] for m in metrics],
         gnorm=[m["gnorm"] for m in metrics], lr=[m["lr"] for m in metrics],
-        ops_ms=t["ops_ms"],
+        ops_ms=t["ops_ms"], attn_train_launches=launches,
         top_ops_ms=[[name[:40], ms, n] for name, ms, n in t["top"]],
         top_kernels_ms=[[name[:70], ms, n]
                         for name, ms, n in t["top_kernels"]])),
         flush=True)
+    want = {name: TRAIN_TIMED * cfg.n_layers * (2 if name == "train_fwd"
+                                                else 1)
+            for name in launches}
+    check(launches == want and all(n > 0 for n in launches.values()),
+          f"train: the attention pair launched {launches}, expected {want}")
     check(all(math.isfinite(m["loss"]) and math.isfinite(m["gnorm"])
               for m in metrics), "train: a loss or gnorm is not finite")
     check(all(m["gnorm"] > 0 for m in metrics), "train: a gnorm is 0")
@@ -3418,6 +3596,7 @@ def train_step(dev, card: str) -> None:
     check([m["lr"] for m in metrics] == lrs,
           f"train: lr {[m['lr'] for m in metrics]} != cosine_schedule's "
           f"{lrs}")
+    return launches
 
 
 PARITY_SIZES = {
@@ -3494,36 +3673,50 @@ def main() -> int:
     ptxas_phase()
 
     kernels = kernel_phase(dev)
+    kernels.append(attn_train_phase(dev))
     launches, central = app_phase(dev)
     launches["flash_decode"] = serve_phase(dev)
     launches["flash_attention"] = llm_phase(dev, card)
     torch.cuda.empty_cache()
-    moe_launches, granite = moe_phase(dev, card)
+    # the phases that train on the card: each one's flash launches and,
+    # counted from 0 just before it, the training attention pair's
+    (moe_launches, granite), moe_train = with_train_launches(
+        moe_phase, dev, card)
     torch.cuda.empty_cache()
-    mesh_launches, mesh_train_row = mesh_phase(dev, card, granite)
+    (mesh_launches, mesh_train_row), mesh_train = with_train_launches(
+        mesh_phase, dev, card, granite)
     torch.cuda.empty_cache()
     dryrun_phase(dev, card, mesh_train_row)
     torch.cuda.empty_cache()
-    vlm_launches = vlm_phase(dev, card)
+    vlm_launches, vlm_train = with_train_launches(vlm_phase, dev, card)
     torch.cuda.empty_cache()
-    hybrid_launches = recurrent_phase(dev, card, "hybrid", HYBRID_ARCH)
+    hybrid_launches, hybrid_train = with_train_launches(
+        recurrent_phase, dev, card, "hybrid", HYBRID_ARCH)
     torch.cuda.empty_cache()
-    ssm_launches = recurrent_phase(dev, card, "ssm", SSM_ARCH)
+    ssm_launches, ssm_train = with_train_launches(
+        recurrent_phase, dev, card, "ssm", SSM_ARCH)
     torch.cuda.empty_cache()
-    audio_launches = audio_phase(dev, card)
+    audio_launches, audio_train = with_train_launches(audio_phase, dev,
+                                                      card)
     torch.cuda.empty_cache()
     pipe_phase(dev, card)
     torch.cuda.empty_cache()
-    train_phase(dev, card)
+    launches["flash_attention_train"] = train_phase(dev, card)
     by_path = {"depman": depman_phase(dev, central),
                "sharded": sharded_phase(dev, central),
                "fuzz": {"matmul_batched": fuzz_phase(dev)},
-               "moe": {"flash_attention": moe_launches},
-               "mesh": {"flash_attention": mesh_launches},
-               "vlm": {"flash_attention": vlm_launches},
-               "hybrid": {"flash_attention": hybrid_launches},
-               "ssm": {"flash_attention": ssm_launches},
-               "audio": {"flash_attention": audio_launches}}
+               "moe": {"flash_attention": moe_launches,
+                       "flash_attention_train": moe_train},
+               "mesh": {"flash_attention": mesh_launches,
+                        "flash_attention_train": mesh_train},
+               "vlm": {"flash_attention": vlm_launches,
+                       "flash_attention_train": vlm_train},
+               "hybrid": {"flash_attention": hybrid_launches,
+                          "flash_attention_train": hybrid_train},
+               "ssm": {"flash_attention": ssm_launches,
+                       "flash_attention_train": ssm_train},
+               "audio": {"flash_attention": audio_launches,
+                         "flash_attention_train": audio_train}}
     sim_phase(dev, central)
     obs_phase(dev)
     for row in kernels:

@@ -43,17 +43,20 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch"
 SOURCES = ("matmul", "jacobi", "flash_decode", "black_scholes",
-           "flash_attention")
+           "flash_attention", "flash_attention_train")
 
 # the kernels that must run on the tensor cores, by source: for each
 # kernel (a part of its mangled name), the SASS lines that show it, for
 # sass_counts -- wgmma (HGMMA) fed by TMA (UTMALDG) in the bf16 flash
-# attention, tf32 tensor-core products in the GEMM and the tile update
+# attention and in the training attention's forward, dQ and dK/dV kernels,
+# tf32 tensor-core products in the GEMM and the tile update
 _TF32_MMA = {"HMMA.TF32": r"\bHG?MMA\.\S*TF32"}
+_WGMMA_TMA = {"HGMMA": r"\bHGMMA\.", "UTMALDG": r"\bUTMALDG\b"}
 TENSOR_CORE_SASS = {
-    "flash_attention": {
-        "flash_attention_bf16_kernel": {"HGMMA": r"\bHGMMA\.",
-                                        "UTMALDG": r"\bUTMALDG\b"}},
+    "flash_attention": {"flash_attention_bf16_kernel": _WGMMA_TMA},
+    "flash_attention_train": {"attn_train_fwd_kernel": _WGMMA_TMA,
+                              "attn_train_dq_kernel": _WGMMA_TMA,
+                              "attn_train_dkdv_kernel": _WGMMA_TMA},
     "matmul": {"tile_gemm_3xtf32_kernel": _TF32_MMA,
                "tile_update_3xtf32_kernel": _TF32_MMA},
 }

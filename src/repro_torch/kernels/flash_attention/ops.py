@@ -1,22 +1,33 @@
-"""Public attention op: the hand-written flash kernel or plain torch paths.
+"""Public attention op: the hand-written flash kernels or plain torch paths.
 
 ``chunked`` is the online-softmax implementation the models use by
-default (the JAX package's ``lax.scan`` path), a loop over query and key
-chunks in plain torch; ``pallas`` is the hand-written kernel
+default (the JAX package's ``lax.scan`` path).  On the card, for bf16
+operands of the shapes :func:`train.takes_kernels` admits, it runs the
+training kernels (:func:`train.flash_attention_train`: a forward and a
+backward written by hand, the same mathematics); everywhere else (the CPU,
+f32, MLA's asymmetric heads, causal Sq > Skv) it is
+:func:`chunked_attention`, a loop over query and key chunks in plain
+torch.  ``pallas`` is the hand-written prefill kernel
 (:func:`kernel.flash_attention`) in place of the reference's Pallas one;
 ``naive`` is the oracle.  The model path does not vmap attention, so the
-kernel is called directly and declares no operator.  ``chunked`` and
-``naive`` differentiate; the kernel has no backward (nor has the TPU
-kernel) and refuses inputs that require grad while grad mode is on.
-On ``meta`` tensors ``chunked`` runs three query blocks and three key
-blocks of each, the middle ones counted for the rest
-(``metatrace.steps``).
+kernels are called directly and declare no operator.  ``chunked`` and
+``naive`` differentiate; the prefill kernel has no backward (nor has the
+TPU kernel) and refuses inputs that require grad while grad mode is on.
+On ``meta`` tensors ``chunked`` stands for the card: a call the card sends
+to the training kernels allocates what they allocate
+(:func:`train.attention_on_meta`) and is counted as
+:func:`chunked_attention`, which, there and in every other ``meta``
+call, runs three query blocks and three key blocks of each, the middle
+ones counted for the rest (``metatrace.steps``).  In an open recording
+(``obs.recording``) each
+``chunked`` call on the card adds 1 to the counter ``attn.fused`` when it
+takes the kernels and to ``attn.chunked`` when it takes the torch loop.
 """
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ... import metatrace
-from . import kernel, ref
+from ... import metatrace, obs
+from . import kernel, ref, train
 
 __all__ = ["attention", "chunked_attention"]
 
@@ -30,6 +41,24 @@ def attention(q, k, v, *, causal: bool = True, scale: float | None = None,
     if impl == "naive":
         return ref.mha(q, k, v, causal=causal, scale=scale)
     if impl == "chunked":
+        rec = obs.current()
+        kinds = {x.device.type for x in (q, k, v)}
+        dtypes = {x.dtype for x in (q, k, v)}
+        kind = kinds.pop() if len(kinds) == 1 else None
+        # a ``meta`` trace (the dry run) stands for the card
+        if kind is not None and len(dtypes) == 1 and train.takes_kernels(
+                "cuda" if kind == "meta" else kind, dtypes.pop(),
+                tuple(q.shape), tuple(k.shape), tuple(v.shape), causal):
+            if kind == "meta":
+                return train.attention_on_meta(
+                    q, k, v, causal=causal, scale=scale, q_chunk=q_chunk,
+                    k_chunk=k_chunk)
+            if rec is not None:
+                rec.add("attn.fused", 1)
+            return train.flash_attention_train(q, k, v, causal=causal,
+                                               scale=scale)
+        if rec is not None and q.device.type == "cuda":
+            rec.add("attn.chunked", 1)
         return chunked_attention(q, k, v, causal=causal, scale=scale,
                                  q_chunk=q_chunk, k_chunk=k_chunk)
     raise ValueError(f"unknown attention impl {impl!r}")

@@ -124,15 +124,18 @@ def memory_stats(*, argument_size_in_bytes: int, output_size_in_bytes: int,
 
 class _Virtual:
     """Bytes standing for the items a shortened loop skipped, alive until
-    the ``count`` storages of the item that ran are freed; ``held``: of
-    them, those that stand in for unread pieces' gradients too, and
+    the ``count`` storages of the item that ran are freed and, where
+    those are freed in the backward pass before it has left the item's
+    region (its first sequence number ``lo``), until it has; ``held``:
+    of them, those that stand in for unread pieces' gradients too, and
     ``then``: the (split, bytes) stand-ins to count once they are
     freed."""
-    __slots__ = ("nbytes", "count", "held", "then")
+    __slots__ = ("nbytes", "count", "held", "then", "lo", "dropped")
 
-    def __init__(self, nbytes: int, count: int):
-        self.nbytes, self.count = nbytes, count
+    def __init__(self, nbytes: int, count: int, lo: int | None = None):
+        self.nbytes, self.count, self.lo = nbytes, count, lo
         self.held, self.then = 0, []
+        self.dropped = False
 
 
 class LiveBytes(TorchDispatchMode):
@@ -155,7 +158,13 @@ class LiveBytes(TorchDispatchMode):
     and the zeros that backward makes in their place are not.  While the
     region's own leftovers live on, the larger of the two is counted:
     the unrolled loop frees one item's leftovers as it makes the next
-    one's gradients, from the last item to the first."""
+    one's gradients, from the last item to the first.  So the region's
+    leftovers, freed in the backward pass before it reaches the region
+    (the last item's backward frees the middle one's output), are counted
+    until it has left the region: the unrolled loop frees the skipped
+    items' leftovers one by one inside that stretch, and the item's own
+    peak there meets the most of them.  What runs under
+    ``metatrace.unseen`` is not tracked."""
 
     def __init__(self):
         super().__init__()
@@ -169,6 +178,9 @@ class LiveBytes(TorchDispatchMode):
         # split backward node's sequence number -> [bytes stood in, zeros
         # still to make]
         self._standing: dict[int, list] = {}
+        # stand-ins whose storages are freed, counted until the backward
+        # pass leaves their region
+        self._deferred: list[_Virtual] = []
 
     def __enter__(self):
         metatrace.add_listener(self)
@@ -180,6 +192,10 @@ class LiveBytes(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if metatrace.is_unseen():
+            return func(*args, **kwargs)
+        if self._deferred:
+            self._leave()
         metatrace.entering()
         out = func(*args, **kwargs)
         if self._standing and func is torch.ops.aten.zeros.default and \
@@ -228,10 +244,38 @@ class LiveBytes(TorchDispatchMode):
         for v in rec[2]:
             v.count -= 1
             if v.count == 0:
-                self._drop(v)
+                self._release(v)
+
+    def _release(self, v: _Virtual) -> None:
+        """``v``'s storages are freed: drop it, or, in the backward pass
+        at or above its region, once the pass has left the region (at the
+        latest when the pass ends)."""
+        node = torch._C._current_autograd_node()
+        if v.lo is None or node is None or node._sequence_nr() < v.lo:
+            self._drop(v)
+            return
+        if not self._deferred:
+            torch.autograd.Variable._execution_engine.queue_callback(
+                self._flush)
+        self._deferred.append(v)
+
+    def _leave(self) -> None:
+        node = torch._C._current_autograd_node()
+        if node is None:
+            self._flush()
+            return
+        seq = node._sequence_nr()
+        for v in [v for v in self._deferred if seq < v.lo]:
+            self._deferred.remove(v)
+            self._drop(v)
+
+    def _flush(self) -> None:
+        while self._deferred:
+            self._drop(self._deferred.pop())
 
     def _drop(self, v: _Virtual) -> None:
         """``v`` freed: the stand-ins it held are counted now."""
+        v.dropped = True
         self.live -= v.nbytes
         for seq, n in v.then:
             rec = self._standing.get(seq)
@@ -256,7 +300,7 @@ class LiveBytes(TorchDispatchMode):
             members.append(rec)
         if not members:
             return
-        v = _Virtual((n - 1) * grown, len(members))
+        v = _Virtual((n - 1) * grown, len(members), lo)
         for rec in members:
             rec[2].append(v)
         self._add(v.nbytes)
@@ -284,7 +328,7 @@ class LiveBytes(TorchDispatchMode):
             node.register_hook(lambda *_: self._gathered(seq))
         n = copies * nbytes
         v = self._virtual_of.get(lo)
-        if v is not None and v.count > 0:
+        if v is not None and not v.dropped:
             held = min(n, v.nbytes - v.held)
             v.held += held
             v.then.append((seq, held))

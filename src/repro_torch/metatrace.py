@@ -50,6 +50,13 @@ Listeners (``add_listener``) see every region open and close, with its
 trip count: the memory tracker uses that to count what an item leaves
 alive once per item it stands for.
 
+What runs under :func:`unseen` is counted but held by no one: the flop
+counter counts its ops, each by its multiplier, while the listeners hear
+none of its regions, collections or reads and the memory tracker tracks
+none of its storages.  A kernel's ``meta`` rule uses it where the kernel
+allocates less than the plain version it is counted as (the training
+attention pair, ``kernels/flash_attention/train.py``).
+
 The backward pass has its own such bytes.  An item that is a piece of a
 ``split``/``unbind`` (a block, a time step, a layer's weights) gets its
 gradient in the backward pass, and autograd holds it until the split's
@@ -80,7 +87,7 @@ import torch
 
 __all__ = ["steps", "Steps", "multiplier", "frozen", "on_meta",
            "fill_keys", "account", "entering", "add_listener",
-           "remove_listener", "clear"]
+           "remove_listener", "clear", "unseen", "is_unseen"]
 
 _state = threading.local()
 # regions of autograd sequence numbers, closed, sorted by ``lo``:
@@ -89,6 +96,7 @@ _los: list[int] = []
 _regions: list[tuple[int, int, int]] = []
 _memo: dict[int, int] = {}
 _listeners: list = []
+_unseen = 0             # depth of the open ``unseen`` contexts, any thread
 _counters: list = []
 _lock = threading.Lock()
 # split/unbind backward nodes whose pieces the loops read, by sequence
@@ -109,6 +117,28 @@ def on_meta(*tensors) -> bool:
     return bool(tensors) and all(
         isinstance(t, torch.Tensor) and t.device.type == "meta"
         for t in tensors)
+
+
+def _audience() -> list:
+    """The listeners to tell: none inside :func:`unseen`."""
+    return [] if _unseen else list(_listeners)
+
+
+@contextlib.contextmanager
+def unseen():
+    """Count what runs inside, and let no listener see it (see the module
+    docstring).  Not thread-local: a backward pass run inside may run on
+    the autograd engine's threads."""
+    global _unseen
+    _unseen += 1
+    try:
+        yield
+    finally:
+        _unseen -= 1
+
+
+def is_unseen() -> bool:
+    return _unseen > 0
 
 
 def _stack() -> list:
@@ -181,7 +211,8 @@ def _region(n: int):
     total = _forward_multiplier() * n
     grad = torch.is_grad_enabled()
     lo = _next_seq() if grad else None
-    for obj in list(_listeners):
+    audience = _audience()
+    for obj in audience:
         obj.region_enter(n)
     _stack().append(n)
     _opened().append(lo)
@@ -190,7 +221,7 @@ def _region(n: int):
     finally:
         _stack().pop()
         _opened().pop()
-        for obj in list(_listeners):
+        for obj in audience:
             obj.region_exit(n, lo)
         if grad:
             hi = _next_seq() - 2          # the closing probe took one
@@ -257,7 +288,7 @@ class Steps:
         if not self.short:
             return outs
         head, (mid, last) = outs[:-2], outs[-2:]
-        for obj in list(_listeners):
+        for obj in _audience():
             obj.collected(_leaves(mid), self.n - 3)
         return head + [mid] + [_detached(mid) for _ in range(self.n - 3)] \
             + [last]
@@ -305,7 +336,7 @@ def _noted(item):
     """``item``, each piece of a split in it (a tensor, or in a tuple,
     list or dict) noted as read (see the module docstring) while a
     listener is open."""
-    if not _listeners:
+    if not _audience():
         return item
     if isinstance(item, torch.Tensor):
         _note(item)
@@ -373,7 +404,7 @@ def entering() -> None:
     """Called by a listener before each op.  When the backward pass runs
     a node made in a region where pieces were read, the first time, the
     listeners hear each piece's stand-ins (``stand_in``)."""
-    if not _pending:
+    if not _pending or _unseen:
         return
     node = torch._C._current_autograd_node()
     if node is None:

@@ -125,7 +125,10 @@ def _prefill_trace(arch):
 # vocabulary, so that the loss does not hold the peak);
 # qwen-replicas-train: 6 heads that the 8-wide model axis of a (1, 8)
 # mesh does not divide, so that the chunk runs on the 8 positions that
-# hold it, each query block reading every key block
+# hold it, each query block reading every key block; granite-bf16-train:
+# bf16, so that training attention takes the kernel pair's ``meta`` rule
+# and the peak lies inside the middle layers' backward pass, where the
+# unrolled loop frees the skipped layers' leftovers one by one
 CELLS = {"granite-train": (GRANITE, "train"),
          "granite-serve": (GRANITE, "serve"),
          "deepseek-serve": (DEEPSEEK, "serve"),
@@ -137,7 +140,9 @@ CELLS = {"granite-train": (GRANITE, "train"),
              vocab_size=32)),
          "qwen-replicas-train": ("qwen1.5-4b", "train", dict(
              seq=128, mesh=(1, 8), n_layers=1, n_heads=6, n_kv_heads=6,
-             vocab_size=32))}
+             vocab_size=32)),
+         "granite-bf16-train": (GRANITE, "train", dict(
+             seq=256, n_layers=6, compute_dtype="bfloat16"))}
 
 
 def _traced(arch, mode, kw=None):

@@ -368,6 +368,18 @@ _DUMP = """
 \t\tFunction : _ZN4anon26flash_attention_f32_kernelILi64EEEv
 \t/*0000*/                   FFMA R1, R2, R3, R1 ;
 \t/*0010*/                   UTMALDG.3D [UR8], [UR4] ;
+\t\tFunction : _ZN4anon21attn_train_fwd_kernelILi64EEEv
+\t/*0000*/                   UTMALDG.3D [UR8], [UR4] ;
+\t/*0010*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ ;
+\t\tFunction : _ZN4anon20attn_train_dq_kernelILi64EEEv
+\t/*0000*/                   UTMALDG.3D [UR8], [UR4] ;
+\t/*0010*/                   UTMALDG.3D [UR8], [UR4] ;
+\t/*0020*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ ;
+\t\tFunction : _ZN4anon22attn_train_dkdv_kernelILi64EEEv
+\t/*0000*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ ;
+\t/*0010*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR8], R24 ;
+\t/*0020*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR8], R24 ;
+\t/*0030*/                   UTMALDG.3D [UR8], [UR4] ;
 \t\tFunction : _ZN4anon25tile_update_3xtf32_kernelILb1EEEv
 \t/*0000*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;
 \t/*0010*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
@@ -387,6 +399,9 @@ def test_sass_counts_reads_only_the_named_kernel(monkeypatch, source):
     monkeypatch.setattr(subprocess, "run", lambda *a, **kw:
                         subprocess.CompletedProcess(a, 0, stdout=_DUMP))
     want = {"flash_attention_bf16_kernel": {"HGMMA": 2, "UTMALDG": 1},
+            "attn_train_fwd_kernel": {"HGMMA": 1, "UTMALDG": 1},
+            "attn_train_dq_kernel": {"HGMMA": 1, "UTMALDG": 2},
+            "attn_train_dkdv_kernel": {"HGMMA": 3, "UTMALDG": 1},
             "tile_update_3xtf32_kernel": {"HMMA.TF32": 1},
             "tile_gemm_3xtf32_kernel": {"HMMA.TF32": 2}}
     kernels = _build.TENSOR_CORE_SASS[source]
