@@ -1,23 +1,28 @@
 """What every kind of cell shares: the manifest and the files found by
-name, seeds, the weights drawn from the seed, the device's description,
-the comparison of two readings, and the result line."""
+name, the plain reference a configuration names, seeds, the weights
+drawn from the seed, the device's description, the comparison of two
+readings, and the result line."""
 from __future__ import annotations
 
 import importlib.util
 import json
 import math
 import pathlib
+import re
 import sys
 
 import numpy as np
 import torch
 
-from .reference import model as ref_model
-
 ROOT = pathlib.Path(__file__).resolve().parent
 REPO = ROOT.parent
 # top-level modules no run may hold: the JAX stack and the JAX package
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
+# what a reference module owes (perfbench/README.md): its equations, its
+# operation counts and its cut for the CPU tests
+REFERENCE_API = ("Dims", "weight_specs", "hidden_states", "logits_at",
+                 "loss", "train_step_flops", "prefill_flops", "small")
+_MODULE = re.compile(r"^[A-Za-z_][A-Za-z0-9_]*$")
 
 
 def load_json(path) -> dict:
@@ -48,6 +53,17 @@ def metrics_of(man: dict, cell: str, trace: bool) -> list[dict]:
     ones traced; a metric with ``workloads`` belongs to those cells."""
     group = man["per_layer"] if trace else man["end_to_end"]
     return [m for m in group if cell in m.get("workloads", [cell])]
+
+
+def reference(conf: dict):
+    """The plain reference of configuration ``conf``: the module
+    ``perfbench/reference/<name>.py`` that its key ``reference`` names,
+    ``model`` (GQA decoders) where it names none.  The only place that
+    picks a reference's equations."""
+    name = conf.get("reference", "model")
+    if not _MODULE.match(name):
+        raise ValueError(f"reference {name!r} is not a module's name")
+    return importlib.import_module(f"perfbench.reference.{name}")
 
 
 def reader(name: str):
@@ -87,7 +103,9 @@ def draw_leaf(t: torch.Tensor, spec, seed: int, index: int) -> torch.Tensor:
 
 
 def weight_specs(conf: dict) -> dict:
-    return ref_model.weight_specs(ref_model.Dims(conf))
+    """``{name: (shape, init, scale)}`` of ``conf``'s reference."""
+    ref = reference(conf)
+    return ref.weight_specs(ref.Dims(conf))
 
 
 def draw_into(named: dict, conf: dict, seed: int) -> None:

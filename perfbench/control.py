@@ -61,7 +61,7 @@ def serve_seed(c: dict, control: bool) -> dict:
     import torch
     from perfbench import common, program
     from perfbench.kinds import serve
-    from perfbench.reference import model as ref_model
+    from perfbench.reference.arith import Arith
     cfg = program.model_config(c["config"], "serve")
     params = program.decoder(cfg, c["config"], c["seed"], c["device"])
     batches = []
@@ -72,11 +72,10 @@ def serve_seed(c: dict, control: bool) -> dict:
     del params
     common.free(c["device"])
     picks = serve.check_sample(c, batches)
-    out = {"program": serve.served_gaps(c, batches, picks,
-                                        ref_model.Arith("f32"))}
+    out = {"program": serve.served_gaps(c, batches, picks, Arith("f32"))}
     if control:
         out["control_fp8"] = serve.served_gaps(
-            c, batches, picks, ref_model.Arith("fp8"),
+            c, batches, picks, Arith("fp8"),
             tokens_of=lambda lg: torch.argmax(lg, -1))
     return out
 

@@ -15,18 +15,24 @@ prompts' tokens are drawn from the seed on the device; the lengths and
 their order are the same for every seed, so that the seed changes the
 tokens and not the work.  Set-up warms every length with a batch of
 ``warmup_new_tokens`` new tokens, in the cache of the window's size.
+A traced run also records the program's spans and counters
+(``obs.recording``) over its batches, into the trace (as host ranges on
+its clock) and the record; its warm-up batches run under a recording of
+their own, so that the kernels the recording adds load before them.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 
 import torch
 
+from repro_torch import obs
 from repro_torch.launch.serve import generate
 from repro_torch.models import api
 
 from .. import common, program
-from ..reference import model as ref_model
+from ..reference.arith import Arith, tf32_off
 from ..trace import Trace
 
 
@@ -125,32 +131,33 @@ def check_sample(c: dict, batches: list[dict]) -> list[tuple[int, int]]:
 
 
 @torch.inference_mode()
-def served_gaps(c: dict, batches, picks, ar: ref_model.Arith,
+def served_gaps(c: dict, batches, picks, ar: Arith,
                 tokens_of=None) -> dict:
-    """For each picked request, the reference's logits at every position
-    that chose a served token, over its prompt and served tokens; the
-    gap by which the served token's logit lies below the best one.  With
+    """For each picked request, the logits of the configuration's
+    reference module at every position that chose a served token, over
+    its prompt and served tokens; the gap by which the served token's
+    logit lies below the best one.  With
     ``tokens_of`` (a function of the request's logits under ``ar``) the
     tokens judged are those instead of the served ones, as the control
     reads them."""
     conf, dev, new = c["config"], c["device"], c["traffic"]["new_tokens"]
-    ref_model.tf32_off()
-    dims = ref_model.Dims(conf)
+    ref = common.reference(conf)
+    tf32_off()
+    dims = ref.Dims(conf)
     w = common.fresh_weights(conf, c["seed"], dev)
-    exact = ref_model.Arith("f32")
+    exact = Arith("f32")
     worst, gaps = 0.0, []
     for k, row in picks:
         served = batches[k]["tokens"][row].to(dev).long()
         prompt = prompts(c, k)[row].long()
         seq = torch.cat([prompt, served[:-1]])[None]
         length = prompt.shape[0]
-        hid = ref_model.hidden_states(w, dims, seq, exact)[0,
-                                                         length - 1:]
-        logits = ref_model.logits_at(w, dims, hid, exact)[:, :dims.vocab]
+        hid = ref.hidden_states(w, dims, seq, exact)[0, length - 1:]
+        logits = ref.logits_at(w, dims, hid, exact)[:, :dims.vocab]
         judged = served
         if tokens_of is not None:
-            hid_c = ref_model.hidden_states(w, dims, seq, ar)[0, length - 1:]
-            judged = tokens_of(ref_model.logits_at(w, dims, hid_c, ar)
+            hid_c = ref.hidden_states(w, dims, seq, ar)[0, length - 1:]
+            judged = tokens_of(ref.logits_at(w, dims, hid_c, ar)
                                [:, :dims.vocab])
         g = logits.max(-1).values - logits.gather(-1, judged[:, None])[:, 0]
         gaps.append(float(g.max()))
@@ -167,7 +174,8 @@ def run(c: dict) -> dict:
     cfg = program.model_config(conf, "serve")
     params = program.decoder(cfg, conf, c["seed"], dev)
     lengths = tr["prompt_lengths"]
-    with Hooks(dev, timed=False) as hooks:
+    with Hooks(dev, timed=False) as hooks, \
+            obs.recording() if c["trace"] else contextlib.nullcontext():
         for k in range(len(lengths)):
             serve_batch(c, cfg, params, prompts(c, k, common.WARMUP), hooks,
                         tr["warmup_new_tokens"])
@@ -189,11 +197,14 @@ def run(c: dict) -> dict:
                     activities=common.activities(dev)) as prof:
             with torch.profiler.record_function("perfbench/window"):
                 common.sync(dev)
-                for k in range(tr["traced_cycles"] * len(lengths)):
-                    batches.append(serve_batch(c, cfg, params,
-                                               prompts(c, k), hooks))
-        rec["trace"] = Trace.of(prof)
-        del prof
+                with obs.recording() as spans:
+                    for k in range(tr["traced_cycles"] * len(lengths)):
+                        batches.append(serve_batch(c, cfg, params,
+                                                   prompts(c, k), hooks))
+        rec["trace"] = Trace.of(
+            prof, lambda base_ns: obs.span_events(spans, base_ns))
+        rec["counters"] = dict(spans.counters)
+        del prof, spans
         rec["prefills"] = [(tr["batch"], b["prompt_len"]) for b in batches]
         rec["prefill_s"] = hooks.prefill_s
         rec["decode_s"] = hooks.decode_s
@@ -209,8 +220,7 @@ def run(c: dict) -> dict:
     common.free(dev)
 
     t_ref = time.perf_counter()
-    got = served_gaps(c, batches, check_sample(c, batches),
-                      ref_model.Arith("f32"))
+    got = served_gaps(c, batches, check_sample(c, batches), Arith("f32"))
     got["reference_s"] = time.perf_counter() - t_ref
     return {"record": rec, "attempted": len(batches) * tr["batch"],
             "failed": failed, "readings": got}

@@ -12,21 +12,27 @@ and the program's state is freed.
 
 A traced run profiles the device's activity only: host operations are
 not recorded, so the traced steps run as the untraced ones do, but for
-the profiler's cost on each launch.
+the profiler's cost on each launch and the program's own spans and
+counters (``obs.recording``), which the traced steps record and which go
+into the trace (as host ranges on its clock) and the record.  Set-up's
+steps run under a recording of their own in a traced run, so that the
+kernels the recording adds (its counters') load before the window.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 
 import torch
 
+from repro_torch import obs
 from repro_torch.launch.train import build_train_step
 from repro_torch.optim import adamw_init
 
 from .. import common, program
-from ..reference import model as ref_model
 from ..reference import train as ref_train
+from ..reference.arith import Arith, tf32_off
 from ..tokens import SyntheticTokens
 from ..trace import Trace
 
@@ -88,10 +94,12 @@ def take_step(state: dict, dev) -> dict:
 
 
 def reference_steps(c: dict, n_check: int, precision: str = "f32") -> dict:
-    """The reference's readings of the same first steps."""
+    """The reference's readings of the same first steps, by the
+    configuration's reference module."""
     conf, tr, dev, seed = c["config"], c["traffic"], c["device"], c["seed"]
-    ref_model.tf32_off()
-    dims = ref_model.Dims(conf)
+    ref = common.reference(conf)
+    tf32_off()
+    dims = ref.Dims(conf)
     data = SyntheticTokens(conf["vocab_size"], tr["seq"], tr["batch"],
                            seed=common.sub_seed(seed, common.DATA),
                            zipf_a=tr["zipf_a"])
@@ -99,7 +107,7 @@ def reference_steps(c: dict, n_check: int, precision: str = "f32") -> dict:
     steps = check_indices(conf, n_check)
     out = ref_train.run_steps(
         w, dims, [data.batch_at(i).to(dev) for i in steps], steps,
-        conf["train"], ref_model.Arith(precision))
+        conf["train"], Arith(precision), ref.loss)
     out["change"] = {}
     for n in sorted(w):
         out["change"][n] = float((w[n] - common.fresh_leaf(conf, seed, n,
@@ -129,7 +137,8 @@ def compare(prog: dict, ref: dict, drop_below: float) -> dict:
 def run(c: dict) -> dict:
     conf, tr, dev = c["config"], c["traffic"], c["device"]
     n_check = tr["check_steps"]
-    state, prog = program_steps(c, n_check)
+    with obs.recording() if c["trace"] else contextlib.nullcontext():
+        state, prog = program_steps(c, n_check)
     common.sync(dev)
     setup_s = time.perf_counter() - c["t_start"]
 
@@ -149,15 +158,19 @@ def run(c: dict) -> dict:
                 as prof:
             with torch.profiler.record_function("perfbench/window"):
                 common.sync(dev)
-                t0 = time.perf_counter()
-                for _ in range(tr["traced_steps"]):
-                    with torch.profiler.record_function("perfbench/step"):
-                        losses.append(take_step(state, dev)["loss"])
-                common.sync(dev)
-                rec["traced_wall_s"] = time.perf_counter() - t0
+                with obs.recording() as spans:
+                    t0 = time.perf_counter()
+                    for _ in range(tr["traced_steps"]):
+                        with torch.profiler.record_function(
+                                "perfbench/step"):
+                            losses.append(take_step(state, dev)["loss"])
+                    common.sync(dev)
+                    rec["traced_wall_s"] = time.perf_counter() - t0
         rec["traced_steps"] = len(losses)
-        rec["trace"] = Trace.of(prof)
-        del prof
+        rec["trace"] = Trace.of(
+            prof, lambda base_ns: obs.span_events(spans, base_ns))
+        rec["counters"] = dict(spans.counters)
+        del prof, spans
     rec["peak_bytes"] = common.peak_bytes(dev)
     failed = sum(not math.isfinite(float(x)) for x in losses)
     del state

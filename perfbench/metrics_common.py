@@ -16,3 +16,25 @@ def idle_share(rec: dict, kind: str) -> float | None:
     if busy <= 0.0:
         return None
     return 100.0 * (1.0 - busy / (t1 - t0))
+
+
+def span_ms(rec: dict, kind: str, count, names, stop=()) -> float | None:
+    """Device ms, over ``count`` (the traced steps or batches), of the
+    events launched inside the program's spans ``names`` less the nested
+    ``stop`` spans (``Trace.launched_in``); None outside a traced run of
+    ``kind`` or where the trace holds no such span or launch."""
+    tr = rec.get("trace")
+    if rec.get("kind") != kind or tr is None or not count:
+        return None
+    s = tr.launched_in(names, stop)
+    return None if s is None else 1e3 * s / count
+
+
+def counters(rec: dict, *names) -> list[float] | None:
+    """The program's counters ``names`` of a traced run, each above 0,
+    or None."""
+    got = rec.get("counters") or {}
+    vals = [got.get(n) for n in names]
+    if any(v is None or v <= 0 for v in vals):
+        return None
+    return vals

@@ -1,9 +1,20 @@
-"""The plain reference: a decoder-only transformer in plain PyTorch.
+"""The plain reference of GQA decoders: a decoder-only transformer in
+plain PyTorch.
 
-It follows the equations of the configuration files under
-``perfbench/configs`` (dense SwiGLU blocks, or top-k routed SwiGLU
-experts), in float32 with TF32 off unless a lower precision is asked for
-(the control of ``perfbench/control.py``).  It imports nothing of the
+It follows the equations of every configuration file under
+``perfbench/configs`` that names no ``reference`` of its own (today
+``mistral-nemo-12b-4l`` and ``granite-moe-1b-a400m``): grouped-query
+attention with rotary positions, and dense SwiGLU blocks or top-k routed
+SwiGLU experts.  A configuration whose equations differ (latent
+attention, shared experts, leading dense layers, another rope) names its
+own module under ``perfbench/reference/`` in its key ``reference``, and
+the harness finds it by that name (``perfbench.common.reference``); the
+interface such a module owes is in ``perfbench/README.md``: besides
+the equations, their operation counts (:func:`train_step_flops`,
+:func:`prefill_flops`, which ``perfbench/flops.py`` reads) and a cut for
+the CPU tests (:func:`small`).  It runs in
+float32 with TF32 off unless a lower precision is asked for (the
+control of ``perfbench/control.py``).  It imports nothing of the
 program: it defines the weights it needs by name and shape
 (:func:`weight_specs`), and the harness draws them from the seed and
 hands the same tensors to both sides.  The names are those of the
@@ -21,39 +32,11 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-__all__ = ["Arith", "Dims", "weight_specs", "hidden_states", "logits_at",
-           "loss"]
+from .arith import Arith, tf32_off
 
-
-def tf32_off() -> None:
-    """Products in true float32 (the reference's precision)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-
-class Arith:
-    """How the reference multiplies: ``"f32"`` in float32, or ``"fp8"``
-    with both operands rounded to float8 (e4m3, one scale per tensor,
-    products accumulated in float32).  The fp8 rounding passes the
-    gradient straight through, so a training step's backward products
-    read the rounded operands."""
-
-    def __init__(self, precision: str = "f32"):
-        if precision not in ("f32", "fp8"):
-            raise ValueError(precision)
-        self.precision = precision
-
-    def round(self, x):
-        if self.precision == "f32":
-            return x
-        with torch.no_grad():
-            amax = x.detach().abs().amax().clamp(min=1e-30)
-            s = amax / 448.0
-            q = (x.detach() / s).to(torch.float8_e4m3fn).float() * s
-        return x + (q - x).detach()
-
-    def mm(self, a, b):
-        return self.round(a) @ self.round(b)
+__all__ = ["Arith", "Dims", "tf32_off", "weight_specs", "hidden_states",
+           "logits_at", "loss", "active_params", "train_step_flops",
+           "prefill_flops", "small"]
 
 
 class Dims:
@@ -235,3 +218,65 @@ def loss(w: dict, dims: Dims, tokens, ar: Arith, *, block: int = 1024):
         tot = tot + checkpoint(part, hid[:, s0:s0 + block],
                                labels[:, s0:s0 + block], use_reentrant=False)
     return tot / labels.numel()
+
+
+def head_params(conf: dict) -> int:
+    """The output projection's parameters (the tied table's too)."""
+    return conf["hidden_size"] * conf.get("padded_vocab_size",
+                                          conf["vocab_size"])
+
+
+def active_params(conf: dict) -> int:
+    """The parameters a token multiplies by: every layer's attention and
+    FFN weights, of a MoE layer only its top-k experts and its router,
+    and the output projection; the embedding lookup is no product and
+    norms are left out."""
+    d = conf["hidden_size"]
+    hq, hkv = conf["num_attention_heads"], conf["num_key_value_heads"]
+    dh = conf.get("head_dim") or d // hq
+    f = conf["intermediate_size"]
+    attn = d * hq * dh * 2 + d * hkv * dh * 2
+    if conf.get("num_local_experts"):
+        ffn = conf["num_experts_per_tok"] * 3 * d * f + \
+            d * conf["num_local_experts"]
+    else:
+        ffn = 3 * d * f
+    return conf["num_hidden_layers"] * (attn + ffn) + head_params(conf)
+
+
+def _attn_dims(conf: dict) -> tuple[int, int, int]:
+    hq = conf["num_attention_heads"]
+    dh = conf.get("head_dim") or conf["hidden_size"] // hq
+    return conf["num_hidden_layers"], hq, dh
+
+
+def train_step_flops(conf: dict, batch: int, seq: int) -> float:
+    """The products a training step needs once (no recompute): 6 per
+    active parameter a token, and attention's two products over the
+    causal half forward and backward: 6 N_active T + 6 L B Hq S^2 Dh
+    (T = B S)."""
+    layers, hq, dh = _attn_dims(conf)
+    return 6.0 * active_params(conf) * batch * seq + \
+        6.0 * layers * batch * hq * seq * seq * dh
+
+
+def prefill_flops(conf: dict, batch: int, seq: int) -> float:
+    """2 N_active B L + 2 L_layers B Hq Dh L^2 (causal attention), the
+    output projection taken for the last position of each row only, as
+    a prefill takes it."""
+    layers, hq, dh = _attn_dims(conf)
+    body = active_params(conf) - head_params(conf)
+    return 2.0 * body * batch * seq + 2.0 * head_params(conf) * batch + \
+        2.0 * layers * batch * hq * dh * seq * seq
+
+
+def small(conf: dict) -> dict:
+    """``conf`` cut in place for the CPU tests (``perfbench/tests/
+    small.py``): two layers, widths of 128, 8 experts."""
+    conf.update(num_hidden_layers=2, hidden_size=128, num_attention_heads=4,
+                num_key_value_heads=2, head_dim=32, intermediate_size=96,
+                vocab_size=512, padded_vocab_size=512)
+    if conf.get("num_local_experts"):
+        conf.update(num_local_experts=8, num_experts_per_tok=2)
+        conf["program"]["settings"]["moe_capacity_factor"] = 4.0
+    return conf

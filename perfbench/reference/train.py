@@ -1,5 +1,6 @@
-"""The plain reference's training steps: the loss of
-:func:`perfbench.reference.model.loss`, its gradient by autograd, the
+"""The plain reference's training steps: the loss of the configuration's
+reference module (``perfbench.common.reference``, handed in as ``loss``),
+its gradient by autograd, the
 global-norm clip, a cosine schedule with linear warm-up and AdamW with
 decoupled weight decay on every leaf of two or more dimensions, all in
 float32 (or in the control's precision, for the products).
@@ -12,7 +13,7 @@ import math
 
 import torch
 
-from . import model
+from .arith import Arith
 
 __all__ = ["lr_at", "run_steps"]
 
@@ -28,13 +29,15 @@ def lr_at(step: int, hp: dict) -> float:
                    (1 + math.cos(math.pi * prog)))
 
 
-def run_steps(w: dict, dims: model.Dims, batches, steps, hp: dict,
-              ar: model.Arith) -> dict:
+def run_steps(w: dict, dims, batches, steps, hp: dict, ar: Arith,
+              loss) -> dict:
     """Train ``w`` (``{name: f32 tensor}``, updated in place) on
     ``batches`` (token tensors (B, S)), the k-th at schedule step
-    ``steps[k]``.  Returns ``{"loss": [...], "first_grad": {name:
-    norm}}``: each step's loss and, per leaf, the norm of the first
-    step's gradient after the clip, as the optimizer takes it."""
+    ``steps[k]``, by ``loss(w, dims, tokens, ar)`` (the reference
+    module's, with its ``dims``).  Returns ``{"loss": [...],
+    "first_grad": {name: norm}}``: each step's loss and, per leaf, the
+    norm of the first step's gradient after the clip, as the optimizer
+    takes it."""
     b1, b2, eps = hp["b1"], hp["b2"], hp["eps"]
     mu = {n: torch.zeros_like(p) for n, p in w.items()}
     nu = {n: torch.zeros_like(p) for n, p in w.items()}
@@ -43,7 +46,7 @@ def run_steps(w: dict, dims: model.Dims, batches, steps, hp: dict,
         for p in w.values():
             p.grad = None
             p.requires_grad_(True)
-        lo = model.loss(w, dims, tokens, ar)
+        lo = loss(w, dims, tokens, ar)
         lo.backward()
         losses.append(float(lo.detach()))
         with torch.no_grad():

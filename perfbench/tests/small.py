@@ -9,13 +9,10 @@ from perfbench import common
 
 
 def config(conf: dict, compute: str = "bfloat16") -> dict:
-    conf = copy.deepcopy(conf)
-    conf.update(num_hidden_layers=2, hidden_size=128, num_attention_heads=4,
-                num_key_value_heads=2, head_dim=32, intermediate_size=96,
-                vocab_size=512, padded_vocab_size=512)
-    if conf.get("num_local_experts"):
-        conf.update(num_local_experts=8, num_experts_per_tok=2)
-        conf["program"]["settings"]["moe_capacity_factor"] = 4.0
+    """``conf`` at the small size: the cut of its reference module
+    (``small(conf)``); compute in ``compute``, training attention in
+    chunks of 32."""
+    conf = common.reference(conf).small(copy.deepcopy(conf))
     conf["program"]["settings"]["compute_dtype"] = compute
     conf["program"]["train"].update(attn_q_chunk=32, attn_k_chunk=32)
     return conf
@@ -32,21 +29,21 @@ def traffic(tr: dict) -> dict:
 
 
 def context(name: str, seed: int, compute: str = "bfloat16",
-            trace: bool = False) -> dict:
+            trace: bool = False, traffic_update: dict | None = None) -> dict:
     """The driver's context of cell ``name`` at the small size on the
-    CPU."""
+    CPU; ``traffic_update`` overrides keys of the small traffic."""
     cell = common.cell_of(common.manifest(), name)
     return {"config": config(cell["config"], compute),
-            "traffic": traffic(cell["traffic"]), "cell": cell["cell"],
-            "seed": seed, "seconds": 0.3, "trace": trace, "device": "cpu",
-            "t_start": time.perf_counter()}
+            "traffic": {**traffic(cell["traffic"]), **(traffic_update or {})},
+            "cell": cell["cell"], "seed": seed, "seconds": 0.3,
+            "trace": trace, "device": "cpu", "t_start": time.perf_counter()}
 
 
 def run(name: str, seed: int, compute: str = "bfloat16",
-        trace: bool = False) -> dict:
+        trace: bool = False, traffic_update: dict | None = None) -> dict:
     """``harness.run_cell`` of cell ``name`` at the small size."""
     from perfbench import harness
-    c = context(name, seed, compute, trace)
+    c = context(name, seed, compute, trace, traffic_update)
     return harness.run_cell(name, seed=seed, seconds=c["seconds"],
                             trace=trace, device="cpu", t_start=c["t_start"],
                             config=c["config"], traffic=c["traffic"])

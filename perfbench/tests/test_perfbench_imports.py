@@ -52,6 +52,46 @@ def test_reference_imports_nothing_of_the_program(path):
             assert node.level == 1
 
 
+def from_the_gqa_reference(path: pathlib.Path) -> set[str]:
+    """What ``path`` imports from ``perfbench/reference/model.py``: the
+    names it takes from it, and ``*`` for the module itself."""
+    tree = ast.parse(path.read_text(encoding="utf-8"))
+    inside = path.parent == common.ROOT / "reference"
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            out.update("*" for a in node.names
+                       if a.name == "perfbench.reference.model")
+        elif isinstance(node, ast.ImportFrom):
+            mod = ("." * node.level) + (node.module or "")
+            if mod in ("perfbench.reference.model", "..reference.model",
+                       ".reference.model") or (inside and mod == ".model"):
+                out.update(a.name for a in node.names)
+            elif mod in ("perfbench.reference", "..reference",
+                         ".reference") or (inside and mod == "."):
+                out.update("*" for a in node.names if a.name == "model")
+    return out
+
+
+@pytest.mark.parametrize("path", [p for p in FILES
+                                  if p.name != "model.py"],
+                         ids=lambda p: str(p.relative_to(common.ROOT)))
+def test_only_the_lookup_picks_the_equations(path):
+    """No module of the benchmark imports ``reference/model.py`` for its
+    equations: ``common.reference`` finds a configuration's module by
+    name, and a reference module may share only helpers of it."""
+    taken = from_the_gqa_reference(path)
+    assert "*" not in taken
+    assert not taken & set(common.REFERENCE_API)
+
+
+def test_the_lookup_check_sees_an_import(tmp_path):
+    bad = tmp_path / "bad.py"
+    bad.write_text("from ..reference import model\n"
+                   "from perfbench.reference.model import Dims\n")
+    assert from_the_gqa_reference(bad) == {"*", "Dims"}
+
+
 def test_whole_names_are_compared():
     assert "repro" in common.FORBIDDEN and "repro_torch" not in \
         common.FORBIDDEN

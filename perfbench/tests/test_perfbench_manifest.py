@@ -2,6 +2,7 @@
 names found by name."""
 from __future__ import annotations
 
+import importlib.util
 import re
 
 import pytest
@@ -93,3 +94,32 @@ def test_bounds():
         assert 0.01 <= m["bound"] <= 0.25
     assert {m["name"]: m["bound"] for m in MAN["end_to_end"]}["setup_s"] \
         == 0.25
+
+
+@pytest.mark.parametrize("conf", MAN["configs"], ids=lambda e: e["name"])
+def test_config_reference_defines_the_interface(conf):
+    data = common.load_json(common.REPO / conf["file"])
+    ref = common.reference(data)
+    assert ref.__name__ == \
+        f"perfbench.reference.{data.get('reference', 'model')}"
+    for name in common.REFERENCE_API:
+        assert callable(getattr(ref, name, None)), name
+    dims = ref.Dims(data)
+    assert dims.vocab == data["vocab_size"]
+    assert ref.weight_specs(dims)
+
+
+PROGRAM_METRICS = [m for m in MAN["per_layer"]
+                   if m["source"] in ("program_span", "program_counter")]
+
+
+@pytest.mark.parametrize("metric", PROGRAM_METRICS, ids=lambda e: e["name"])
+def test_program_metrics_list_cells_that_record_them(metric):
+    """A reader of the program's spans or counters names its cells: a
+    later cell of its kind, whose model has no such span, is not held to
+    it.  Every kind's traced run records both
+    (``test_perfbench_lookup.py``)."""
+    assert metric["workloads"]
+    for cell in metric["workloads"]:
+        kind = common.cell_of(MAN, cell)["traffic"]["kind"]
+        assert importlib.util.find_spec(f"perfbench.kinds.{kind}"), cell
